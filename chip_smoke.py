@@ -5,19 +5,28 @@ serving path on an NVIDIA H100 through its hand-written CUDA kernels.
 
 Phases (any failure exits non-zero, and no result line is printed):
   1. device: require CUDA; print the card's name and power limit.
-  2. kernels: build both CUDA sources from the checkout (nvcc, sm_90a) and
-     hold each kernel against its plain PyTorch version on the card, at the
-     main path's shapes, with the stated tolerance; time both.
-  3. slice: two in-memory 8192^2 slides (seeded H&E-like texture served as
-     YCbCr 4:2:0 planes) through build_encoder (full-width HIPT_4K, bf16,
-     seeded random weights, batch 2) -> encode_stream -> CLAM_SB
-     hipt_smaller through apply_pooled. Launch counts are zeroed right
-     before this run and must be non-zero after it. The features are held
-     against a second pass of the same weights on the plain versions.
-  4. serve: serve_once over two synthetic JPEG YCbCr 4:2:0 slides of 8192^2
+  2. kernels: build the three CUDA sources from the checkout (one nvcc per
+     source, side by side, sm_90a) and hold each kernel against its plain
+     PyTorch version on the card, at the main path's shapes, with the
+     stated tolerance; time both, the bound of the same work, and the one
+     PyTorch call that computes it where there is one.
+  3. plane slice: two in-memory 8192^2 slides (seeded H&E-like texture served
+     as YCbCr 4:2:0 planes) through build_encoder (full-width HIPT_4K,
+     bf16, seeded random weights, batch 2) -> encode_stream -> CLAM_SB
+     hipt_smaller through serve's _mil_bucketed. Launch counts are zeroed
+     right before this run and must be non-zero after it. The features are
+     held against a second pass of the same weights on the plain versions.
+  4. DCT slice: two in-memory 8192^2 slides stored as JPEG quality-80
+     coefficients (slideio/synthetic.DctMemorySlide) through the same
+     encoder -> encode_stream(adaptive_rungs=False) on the sparse-DCT rung
+     -> CLAM_SB. Counts zeroed before, dct_unpack, fused_block and
+     gated_pool each non-zero after; features held against the plain pass;
+     one batch's decoded planes held against the slide's own decode; the
+     per-rung seed costs measured; one adaptive stream printed.
+  5. serve: serve_once over two synthetic JPEG YCbCr 4:2:0 slides of 8192^2
      on disk (skipped, with a line saying what is missing, where cv2, h5py
      or the native reader's build dependencies are absent).
-  5. profile (only with --profile PATH): where one warm encode_stream's
+  6. profile (only with --profile PATH): where one warm encode_stream's
      time goes, stage by stage, and a torch.profiler kernel table, written
      to PATH.
 
@@ -40,23 +49,32 @@ import time
 import numpy as np
 import torch
 
-from hipt_abmil_atec23_tpu.slideio.reader import BaseSlide
-from hipt_abmil_atec23_tpu.utils.config import (
-    EncoderConfig, ModelConfig, SegConfig, TileConfig)
 from hipt_abmil_atec23_tpu_torch.device import require_cuda
 from hipt_abmil_atec23_tpu_torch.engine.encode import (
-    build_encoder, encode_stream)
+    _decode_batch, build_encoder, encode_stream, probe_dct_caps)
 from hipt_abmil_atec23_tpu_torch.models.abmil import build_mil_model
 from hipt_abmil_atec23_tpu_torch.models.hipt import make_hipt_encoder
 from hipt_abmil_atec23_tpu_torch.models.vit import Block
 from hipt_abmil_atec23_tpu_torch.ops import gated_attention_pool as gap
+from hipt_abmil_atec23_tpu_torch.ops import jpegdct
 from hipt_abmil_atec23_tpu_torch.ops.fused_block import (
     fused_vit_block, fused_vit_block_reference)
+from hipt_abmil_atec23_tpu_torch.slideio.reader import BaseSlide
+from hipt_abmil_atec23_tpu_torch.slideio.synthetic import (
+    DctMemorySlide, he_like_planes)
+from hipt_abmil_atec23_tpu_torch.utils.config import (
+    EncoderConfig, ModelConfig, SegConfig, TileConfig)
 
 BLOCK_TOL = (3e-2, 5e-2)   # |kernel - plain| <= atol + rtol |plain| (bf16)
 POOL_TOL = 1e-4            # f32 logits and scores
 REGION = 4096
 SLIDE = 8192
+KERNELS = ("fused_block", "gated_pool", "dct_unpack")
+
+# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit) for bounds
+HBM_BYTES_S = 3.35e12
+BF16_FLOP_S = 989e12
+F32_FLOP_S = 67e12         # CUDA cores, no tensor cores
 
 
 def log(*a):
@@ -75,6 +93,22 @@ def gpu_timer(fn, iters: int = 10) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / iters
+
+
+def bound(nbytes: float, flops: float, peak: float):
+    """(least ms, what bounds it): each input read and each output written
+    once at the card's memory rate, against the operations at ``peak``."""
+    tb, to = nbytes / HBM_BYTES_S, flops / peak
+    return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
+
+
+def record(name, source, replaces, err, ms, plain_ms, shape, nbytes, flops,
+           peak, library_ms):
+    b_ms, b_by = bound(nbytes, flops, peak)
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": 0, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": library_ms, "shape": shape}
 
 
 # ------------------------------------------------------------------ phase 1
@@ -107,20 +141,24 @@ def _random_clam(g, dev):
     return model.to(dev).eval()
 
 
-def phase_kernels(dev) -> dict:
-    """Each kernel against its plain version; returns the JSON records."""
-    from hipt_abmil_atec23_tpu_torch.kernels import build
-    t0 = time.perf_counter()
-    for name in ("fused_block", "gated_pool"):
-        build.load(name)
-    log(f"kernels built in {time.perf_counter() - t0:.1f} s "
-        f"({build.BUILD_DIR})")
-    g = torch.Generator().manual_seed(0)
-    records = {}
+def _block_library_ms(b, n, nv, d, heads, dev) -> float:
+    """One nn.TransformerEncoderLayer call (pre-LN, GELU, the same widths,
+    key padding mask) at the block's shape: the yardstick for fused_block,
+    timed here and never called by the port."""
+    layer = torch.nn.TransformerEncoderLayer(
+        d, heads, 4 * d, dropout=0.0, activation="gelu",
+        layer_norm_eps=1e-6, batch_first=True, norm_first=True)
+    layer = layer.to(dev, torch.bfloat16).eval()
+    x = torch.randn(b, n, d, device=dev, dtype=torch.bfloat16)
+    pad = torch.arange(n, device=dev)[None, :].expand(b, n) >= nv
+    with torch.inference_mode():
+        return gpu_timer(lambda: layer(x, src_key_padding_mask=pad))
 
-    # fused block: ViT-256 at the slice's batch (2 regions x 256 tiles),
-    # the issue's 64-image shape, ViT-4K at batch 2, an odd small shape
+
+def _kernel_block(dev, g) -> dict:
     worst, timed = 0.0, None
+    # ViT-256 at the slice's batch (2 regions x 256 tiles), a 64-image
+    # shape, ViT-4K at batch 2, an odd small shape
     for b, n, nv, d, h in [(512, 264, 257, 384, 6), (64, 264, 257, 384, 6),
                            (2, 264, 257, 192, 6), (3, 16, 9, 96, 3)]:
         blk = _random_block(d, h, g, dev)
@@ -144,21 +182,30 @@ def phase_kernels(dev) -> dict:
             raise SystemExit(f"fused_block disagrees at [{b},{n},{d}]")
         worst = max(worst, err.max().item())
         if timed is None:
-            timed = (ms, pms, f"[{b},{n},{d}] bf16")
+            # bytes: x in and out in bf16 plus the block's weights; ops:
+            # the four GEMMs and attention over the valid tokens
+            wbytes = sum(p.numel() * p.element_size()
+                         for p in blk.parameters())
+            flops = 2 * b * nv * d * (3 * d + d + 8 * d) + 4 * b * nv * nv * d
+            lib = _block_library_ms(b, n, nv, d, h, dev)
+            log(f"fused_block [{b},{n},{d}]: nn.TransformerEncoderLayer "
+                f"{lib:.4f} ms")
+            timed = (ms, pms, f"[{b},{n},{d}] bf16, n_valid {nv}",
+                     2 * x.numel() * 2 + wbytes, flops, lib)
         del blk, x, got, want, err
-    records["fused_block"] = {
-        "name": "fused_block", "route": "cuda",
-        "source": "hipt_abmil_atec23_tpu_torch/kernels/csrc/fused_block.cu",
-        "replaces": "hipt_abmil_atec23_tpu/ops/fused_block.py:60",
-        "max_abs_err": worst, "ms": timed[0], "plain_ms": timed[1],
-        "shape": timed[2]}
+    ms, pms, shape, nbytes, flops, lib = timed
+    return record("fused_block",
+                  "hipt_abmil_atec23_tpu_torch/kernels/csrc/fused_block.cu",
+                  "hipt_abmil_atec23_tpu/ops/fused_block.py:60", worst, ms,
+                  pms, shape, nbytes, flops, BF16_FLOP_S, lib)
 
-    # pool through apply_pooled: a 4096 bag, the serve path's 512 bucket
-    # and a whole-slide 100k bag
+
+def _kernel_pool(dev, g) -> dict:
     model = _random_clam(g, dev)
     p = gap.params_from_clam(model)
     worst, timed = 0.0, None
-    for n in (4096, 512, 100_000):
+    # the serve path's 512 bucket (timed), a 4096 bag, a whole-slide 100k
+    for n in (512, 4096, 100_000):
         bag = torch.randn(n, 192, generator=g).to(dev)
         mask = torch.arange(n, device=dev) < n - max(1, n // 50)
         with torch.inference_mode():
@@ -178,48 +225,96 @@ def phase_kernels(dev) -> dict:
             raise SystemExit(f"gated_pool disagrees at N={n}")
         worst = max(worst, err)
         if timed is None:
-            timed = (ms, pms, f"[{n},192] f32")
-    records["gated_pool"] = {
-        "name": "gated_pool", "route": "cuda",
-        "source": "hipt_abmil_atec23_tpu_torch/kernels/csrc/gated_pool.cu",
-        "replaces": "hipt_abmil_atec23_tpu/ops/gated_attention_pool.py:87",
-        "max_abs_err": worst, "ms": timed[0], "plain_ms": timed[1],
-        "shape": timed[2]}
+            d_in, l_dim = p.w_f.shape
+            d_att, c_dim = p.w_a.shape[1], p.w_cls.shape[1]
+            wbytes = sum(t.numel() * 4 for t in p)
+            nbytes = bag.numel() * 4 + n + wbytes + n * 4 + c_dim * 4
+            flops = n * (2 * d_in * l_dim + 4 * l_dim * d_att + 2 * d_att
+                         + 2 * l_dim) + 2 * l_dim * c_dim
+            timed = (ms, pms, f"[{n},192] f32", nbytes, flops)
+    ms, pms, shape, nbytes, flops = timed
+    return record("gated_pool",
+                  "hipt_abmil_atec23_tpu_torch/kernels/csrc/gated_pool.cu",
+                  "hipt_abmil_atec23_tpu/ops/gated_attention_pool.py:87",
+                  worst, ms, pms, shape, nbytes, flops, F32_FLOP_S, None)
+
+
+def _device_pack(slide, coords, dev, caps=None, region=REGION):
+    """One batch of ``slide``'s regions as a DctBatch on the card (caps
+    probed from the slide unless given)."""
+    if caps is None:
+        caps, _ = probe_dct_caps(slide, coords, 0, region)
+    pack = _decode_batch(slide, coords, patch_level=0, size=region,
+                         bs=len(coords), n_io_threads=0,
+                         dct_ctx=(slide.dct_probe(0), caps))
+    if not hasattr(pack, "y_dc8"):
+        raise SystemExit("the fixture slide did not read as a DCT pack")
+    return pack, [torch.from_numpy(a).to(dev) for a in pack]
+
+
+def _kernel_unpack(dev, slide) -> dict:
+    """dct_unpack against its plain version at the main path's batch: two
+    4096^2 regions, Y NG = 32768 groups, Cb and Cr NG = 8192 each. The
+    output is integers times the table: equality is required."""
+    coords = np.array([[0, 0], [REGION, REGION]])
+    host, pack = _device_pack(slide, coords, dev)
+    q = pack[27].to(torch.float32)
+    comps = []
+    for c in range(3):
+        dc8, bmc, bmb, valn, esc8 = pack[9 * c:9 * c + 5]
+        comps.append((bmc, bmb, valn, esc8, q[c].contiguous(),
+                      dc8.shape[1] * dc8.shape[2]))
+    worst = 0.0
+    for name, args in zip(("Y", "Cb", "Cr"), comps):
+        got = jpegdct.dct_unpack(*args)
+        want = jpegdct.dct_unpack_reference(*args)
+        torch.cuda.synchronize()
+        ng = got.shape[0] * got.shape[1]
+        err = (got - want).abs().max().item()
+        log(f"dct_unpack {name}: NG {ng}, bit-equal "
+            f"{torch.equal(got, want)}, max_abs_err {err}")
+        if not torch.equal(got, want):
+            raise SystemExit(f"dct_unpack disagrees with its plain version "
+                             f"on {name}")
+        worst = max(worst, err)
+    ngs = [a[0].shape[0] * -(-a[5] // jpegdct._G) for a in comps]
+    if ngs != [32768, 8192, 8192]:
+        raise SystemExit(f"dct_unpack timed at NG {ngs}, not the main path's")
+    ms = gpu_timer(lambda: [jpegdct.dct_unpack(*a) for a in comps])
+    pms = gpu_timer(lambda: [jpegdct.dct_unpack_reference(*a)
+                             for a in comps], iters=3)
+    nbytes = sum(t.numel() * t.element_size() for a in comps
+                 for t in a[:5]) + sum(n * 1024 * 4 for n in ngs)
+    pack_mb = sum(a.nbytes for a in host[:27]) / 1e6
+    log(f"dct_unpack, one batch (3 launches): kernel {ms:.4f} ms, plain "
+        f"{pms:.4f} ms; pack {pack_mb:.2f} MB for 2 regions, "
+        f"{nbytes / 1e6:.1f} MB moved")
+    return record("dct_unpack",
+                  "hipt_abmil_atec23_tpu_torch/kernels/csrc/dct_unpack.cu",
+                  "hipt_abmil_atec23_tpu/ops/jpegdct.py:166", worst, ms, pms,
+                  "Y [32768,1024] + Cb, Cr [8192,1024] f32 (one batch of "
+                  "two 4096^2 regions, 3 launches)", nbytes, 0.0,
+                  F32_FLOP_S, None)
+
+
+def phase_kernels(dev, dct_slide) -> dict:
+    """Each kernel against its plain version; returns the JSON records."""
+    from hipt_abmil_atec23_tpu_torch.kernels import build
+    t0 = time.perf_counter()
+    build.build_all(KERNELS)
+    for name in KERNELS:
+        build.load(name)
+    log(f"kernels built in {time.perf_counter() - t0:.1f} s "
+        f"({build.BUILD_DIR})")
+    g = torch.Generator().manual_seed(0)
+    records = {"fused_block": _kernel_block(dev, g),
+               "gated_pool": _kernel_pool(dev, g),
+               "dct_unpack": _kernel_unpack(dev, dct_slide)}
     torch.cuda.empty_cache()
     return records
 
 
 # ------------------------------------------------------------------ phase 3
-def he_like_planes(seed: int, size: int):
-    """Seeded H&E-like RGB texture (white background, pink stroma blobs,
-    purple nuclei) and its JFIF YCbCr 4:2:0 planes, made in numpy."""
-    rng = np.random.default_rng(seed)
-    cell = 64
-    low = rng.random((size // cell, size // cell)).astype(np.float32)
-    for _ in range(3):  # smooth the tissue field a little
-        low = (low + np.roll(low, 1, 0) + np.roll(low, 1, 1)
-               + np.roll(low, -1, 0) + np.roll(low, -1, 1)) / 5
-    tissue = np.kron(low > np.median(low), np.ones((cell, cell), bool))
-    nuclei = np.kron(rng.random((size // 8, size // 8)) > 0.85,
-                     np.ones((8, 8), bool)) & tissue
-    rgb = np.empty((size, size, 3), np.uint8)
-    rgb[:] = (236, 230, 238)
-    rgb[tissue] = (199, 124, 180)
-    rgb[nuclei] = (92, 58, 140)
-    noise = rng.integers(-20, 21, size=(size, size, 1), dtype=np.int16)
-    rgb = np.clip(rgb.astype(np.int16) + noise, 0, 255).astype(np.uint8)
-    f = rgb.astype(np.float32)
-    y = 0.299 * f[..., 0] + 0.587 * f[..., 1] + 0.114 * f[..., 2]
-    cb = -0.168736 * f[..., 0] - 0.331264 * f[..., 1] + 0.5 * f[..., 2] + 128
-    cr = 0.5 * f[..., 0] - 0.418688 * f[..., 1] - 0.081312 * f[..., 2] + 128
-
-    def sub(c):  # 2x2 box average
-        return c.reshape(size // 2, 2, size // 2, 2).mean((1, 3))
-
-    q = lambda a: np.clip(np.rint(a), 0, 255).astype(np.uint8)
-    return rgb, q(y), q(sub(cb)), q(sub(cr))
-
-
 class PlaneSlide(BaseSlide):
     """A one-level slide over in-memory arrays that serves RGB regions and
     raw YCbCr 4:2:0 planes, as a JPEG-YCbCr TIFF does."""
@@ -247,7 +342,13 @@ class PlaneSlide(BaseSlide):
         return np.stack(ys), np.stack(cbs), np.stack(crs)
 
 
-def encode_slides(jobs, encoder, region):
+def grid_coords(slide=SLIDE, region=REGION):
+    grid = np.arange(0, slide, region)
+    return np.stack(np.meshgrid(grid, grid, indexing="ij"),
+                    -1).reshape(-1, 2)[:, ::-1].copy()
+
+
+def encode_slides(jobs, encoder, region, **kw):
     """encode_stream over the jobs; returns ({sid: feats}, wall s)."""
     def sync():
         if encoder.device.type == "cuda":
@@ -255,7 +356,7 @@ def encode_slides(jobs, encoder, region):
 
     sync()
     t0 = time.perf_counter()
-    feats = dict(encode_stream(jobs, encoder, region_size=region))
+    feats = dict(encode_stream(jobs, encoder, region_size=region, **kw))
     sync()
     return feats, time.perf_counter() - t0
 
@@ -275,53 +376,25 @@ def score(model, feats, dev):
     return out, ref_logits
 
 
-def phase_slice(dev, *, slide=SLIDE, region=REGION, batch=2, vit256_cfg=None,
-                vit4k_cfg=None) -> dict:
-    """The port's main path on in-memory slides, then the plain pass."""
-    kw = {}
-    if vit256_cfg is not None:
-        kw = dict(vit256_cfg=vit256_cfg, vit4k_cfg=vit4k_cfg)
-    dtype = torch.bfloat16
-    kernel_model = make_hipt_encoder(
-        dtype, generator=torch.Generator().manual_seed(0), **kw)
-    plain_model = make_hipt_encoder(dtype, **kw)
-    plain_model.load_state_dict(kernel_model.state_dict())
-    for m in plain_model.modules():
-        if isinstance(m, Block):
-            m.plain = True
-    cfg = EncoderConfig(model_type="HIPT_4K", batch_size=batch,
-                        dtype="bfloat16")
-    enc = build_encoder(cfg, device=dev, model=kernel_model)
-    plain_enc = build_encoder(cfg, device=dev, model=plain_model)
-    clam = _random_clam(torch.Generator().manual_seed(1), dev)
-
-    t0 = time.perf_counter()
-    slides = {f"mem{i}": PlaneSlide(*he_like_planes(10 + i, slide))
-              for i in range(2)}
-    grid = np.arange(0, slide, region)
-    coords = np.stack(np.meshgrid(grid, grid, indexing="ij"),
-                      -1).reshape(-1, 2)[:, ::-1].copy()
-    jobs = [(sid, s, coords) for sid, s in slides.items()]
-    log(f"slides: {len(slides)} x {slide}^2, {len(coords)} regions each "
-        f"({time.perf_counter() - t0:.1f} s to make)")
-
-    encode_slides(jobs[:1], enc, region)  # warm-up (cuBLAS, allocator)
+def zero_counts():
     fused_vit_block.launches = 0
     gap.gated_attention_pool.launches = 0
-    feats, wall = encode_slides(jobs, enc, region)
-    outs = {sid: score(clam, f, dev) for sid, f in feats.items()}
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    launches = {"fused_block": fused_vit_block.launches,
-                "gated_pool": gap.gated_attention_pool.launches}
-    n_regions = sum(len(f) for f in feats.values())
-    log(f"main path launches: {launches}")
+    jpegdct.dct_unpack.launches = 0
 
-    plain_feats, plain_wall = encode_slides(jobs, plain_enc, region)
+
+def read_counts() -> dict:
+    return {"fused_block": fused_vit_block.launches,
+            "gated_pool": gap.gated_attention_pool.launches,
+            "dct_unpack": jpegdct.dct_unpack.launches}
+
+
+def check_features(feats, plain_feats, outs, n_regions, feat_dim):
+    """Kernel-path features against the plain pass (cosine >= 0.999, rel
+    L2 <= 2e-2 per region) and the pooled scores against the plain pool."""
     worst_cos, worst_rel = 1.0, 0.0
     for sid, f in feats.items():
         pf = plain_feats[sid]
-        if f.shape != (len(coords), enc.feat_dim) or not np.isfinite(f).all():
+        if f.shape != (n_regions, feat_dim) or not np.isfinite(f).all():
             raise SystemExit(f"{sid}: bad features {f.shape}")
         cos = (f * pf).sum(1) / (np.linalg.norm(f, axis=1)
                                  * np.linalg.norm(pf, axis=1))
@@ -341,32 +414,172 @@ def phase_slice(dev, *, slide=SLIDE, region=REGION, batch=2, vit256_cfg=None,
         f"max rel L2 {worst_rel:.3g} (<= 2e-2)")
     if worst_cos < 0.999 or worst_rel > 2e-2:
         raise SystemExit("kernel features disagree with the plain pass")
+
+
+def phase_slice(dev, planes, *, slide=SLIDE, region=REGION, batch=2,
+                vit256_cfg=None, vit4k_cfg=None) -> dict:
+    """The port's main path on in-memory plane slides, then the plain
+    pass. ``planes``: (rgb, y, cb, cr) per slide."""
+    kw = {}
+    if vit256_cfg is not None:
+        kw = dict(vit256_cfg=vit256_cfg, vit4k_cfg=vit4k_cfg)
+    dtype = torch.bfloat16
+    kernel_model = make_hipt_encoder(
+        dtype, generator=torch.Generator().manual_seed(0), **kw)
+    plain_model = make_hipt_encoder(dtype, **kw)
+    plain_model.load_state_dict(kernel_model.state_dict())
+    for m in plain_model.modules():
+        if isinstance(m, Block):
+            m.plain = True
+    cfg = EncoderConfig(model_type="HIPT_4K", batch_size=batch,
+                        dtype="bfloat16")
+    enc = build_encoder(cfg, device=dev, model=kernel_model)
+    plain_enc = build_encoder(cfg, device=dev, model=plain_model)
+    plain_enc.plain_unpack = True
+    clam = _random_clam(torch.Generator().manual_seed(1), dev)
+
+    slides = {f"mem{i}": PlaneSlide(*p) for i, p in enumerate(planes)}
+    coords = grid_coords(slide, region)
+    jobs = [(sid, s, coords) for sid, s in slides.items()]
+    log(f"plane slides: {len(slides)} x {slide}^2, {len(coords)} regions "
+        f"each")
+
+    encode_slides(jobs[:1], enc, region)  # warm-up (cuBLAS, allocator)
+    zero_counts()
+    feats, wall = encode_slides(jobs, enc, region)
+    outs = {sid: score(clam, f, dev) for sid, f in feats.items()}
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    launches = read_counts()
+    n_regions = sum(len(f) for f in feats.values())
+    log(f"plane path launches: {launches}")
+
+    plain_feats, plain_wall = encode_slides(jobs, plain_enc, region)
+    check_features(feats, plain_feats, outs, len(coords), enc.feat_dim)
     ms_k = wall * 1e3 / n_regions
     ms_p = plain_wall * 1e3 / n_regions
-    log(f"ms per {region}^2 region (decode + H2D + encode, batch {batch}): "
-        f"kernel path {ms_k:.2f}, plain path {ms_p:.2f}")
-    for name, n in launches.items():
-        if n == 0:
-            raise SystemExit(f"the main path never launched {name}")
+    log(f"plane rung, ms per {region}^2 region (decode + H2D + encode, "
+        f"batch {batch}): kernel path {ms_k:.2f}, plain path {ms_p:.2f}")
+    for name in ("fused_block", "gated_pool"):
+        if launches[name] == 0:
+            raise SystemExit(f"the plane path never launched {name}")
     return {"launches": launches, "ms_region": ms_k,
-            "plain_ms_region": ms_p, "encoder": enc, "clam": clam}
+            "plain_ms_region": ms_p, "encoder": enc,
+            "plain_encoder": plain_enc, "clam": clam}
 
 
 # ------------------------------------------------------------------ phase 4
+def _rung_seeds(slide, coords, enc, caps, region) -> None:
+    """Per-rung stage costs in ms/Mpx for the rung tables of
+    engine/encode.py: the host read of one batch of the fixture slide, and
+    the encoder on that batch already on the card (CUDA events)."""
+    dev, bs = enc.device, enc.batch_size
+    chunk = coords[:bs]
+    mpx = bs * region * region / 1e6
+    ctx = {"dct": dict(dct_ctx=(slide.dct_probe(0), caps)),
+           "yuv": dict(use_yuv=(2, 2)), "rgb": {}}
+    host, dev_ms = {}, {}
+    for rung, kw in ctx.items():
+        t0 = time.perf_counter()
+        buf = _decode_batch(slide, chunk, patch_level=0, size=region, bs=bs,
+                            n_io_threads=0, **kw)
+        host[rung] = (time.perf_counter() - t0) * 1e3 / mpx
+        bufs = [torch.from_numpy(a).to(dev)
+                for a in (buf if isinstance(buf, tuple) else (buf,))]
+        fn = {"dct": enc.apply_dct, "yuv": enc.apply_yuv,
+              "rgb": enc.apply}[rung]
+        dev_ms[rung] = gpu_timer(lambda: fn(*bufs), iters=2) / mpx
+    fmt = lambda t: "{" + ", ".join(f'"{k}": {v:.2f}'
+                                    for k, v in t.items()) + "}"
+    log(f"rung seeds, ms/Mpx at {region}^2 batch {bs}: "
+        f"RUNG_HOST_MS_PER_MPX = {fmt(host)}  RUNG_DEV_MS_PER_MPX = "
+        f"{fmt(dev_ms)}")
+
+
+def phase_dct_slice(dev, res, slides, *, region=REGION) -> dict:
+    """The sparse-DCT rung of the main path on in-memory JPEG-coefficient
+    slides, then the plain pass, a plane check and an adaptive stream."""
+    enc, plain_enc, clam = res["encoder"], res["plain_encoder"], res["clam"]
+    slide_px = slides[0].level_dimensions[0][0]
+    coords = grid_coords(slide_px, region)
+    jobs = [(f"dct{i}", s, coords) for i, s in enumerate(slides)]
+    log(f"DCT slides: {len(slides)} x {slide_px}^2, {len(coords)} regions "
+        f"each")
+
+    zero_counts()
+    stats = {}
+    feats, wall = encode_slides(jobs, enc, region, adaptive_rungs=False,
+                                stats=stats)
+    outs = {sid: score(clam, f, dev) for sid, f in feats.items()}
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    launches = read_counts()
+    n_regions = sum(len(f) for f in feats.values())
+    log(f"DCT path launches: {launches}; stream stats: regions_dct "
+        f"{stats.get('regions_dct', 0)}, h2d {stats['h2d_bytes'] / 1e6:.1f}"
+        f" MB, caps {stats.get('dct_caps')}")
+    if stats.get("regions_dct", 0) != n_regions:
+        raise SystemExit(f"only {stats.get('regions_dct', 0)} of "
+                         f"{n_regions} regions rode the DCT rung")
+
+    plain_feats, plain_wall = encode_slides(jobs, plain_enc, region,
+                                            adaptive_rungs=False)
+    check_features(feats, plain_feats, outs, len(coords), enc.feat_dim)
+    ms_k = wall * 1e3 / n_regions
+    ms_p = plain_wall * 1e3 / n_regions
+    log(f"DCT rung, ms per {region}^2 region (host pack + H2D + decode + "
+        f"encode, batch {enc.batch_size}): kernel path {ms_k:.2f}, plain "
+        f"path {ms_p:.2f}")
+
+    # the card's decode of one batch against the slide's own numpy decode
+    caps = stats["dct_caps"]
+    chunk = coords[:enc.batch_size]
+    _, pack = _device_pack(slides[0], chunk, dev, caps, region)
+    with torch.inference_mode():
+        got = jpegdct.dct_regions_to_planes(*pack)
+    want = slides[0].read_regions_yuv420(chunk, 0, (region, region))
+    for name, g, w in zip(("Y", "Cb", "Cr"), got, want):
+        d = np.abs(g.cpu().numpy().astype(np.int16) - w.astype(np.int16))
+        log(f"DCT planes {name} vs the slide's decode: max |d| {d.max()}, "
+            f"mean {d.mean():.3g} (<= 1 LSB)")
+        if d.max() > 1:
+            raise SystemExit(f"DCT {name} plane off by {d.max()} LSB")
+
+    _rung_seeds(slides[0], coords, enc, caps, region)
+    astats = {}
+    encode_slides(jobs, enc, region, adaptive_rungs=True, stats=astats)
+    cal = astats["rung_calibration"]
+    log(f"adaptive stream: rung_decisions {astats.get('rung_decisions')}, "
+        f"regions dct/yuv/rgb {astats.get('regions_dct', 0)}/"
+        f"{astats.get('regions_yuv', 0)}/{astats.get('regions_rgb', 0)}, "
+        f"wire {astats.get('wire_mbps_final') or 0:.0f} MB/s")
+    rounded = {t: {k: round(v, 2) for k, v in cal[t].items()}
+               for t in ("host_ms_mpx", "dev_ms_mpx")}
+    log(f"adaptive stream calibration: host_ms_mpx "
+        f"{rounded['host_ms_mpx']} dev_ms_mpx {rounded['dev_ms_mpx']}")
+    for name, n in launches.items():
+        if n == 0:
+            raise SystemExit(f"the DCT path never launched {name}")
+    return {"launches": launches, "ms_region": ms_k,
+            "plain_ms_region": ms_p}
+
+
+# ------------------------------------------------------------------ phase 5
 def phase_serve(dev, encoder, clam, *, slide=SLIDE, region=REGION) -> None:
     try:
         import cv2  # noqa: F401
         import h5py  # noqa: F401
-        from hipt_abmil_atec23_tpu.slideio import native
+        from hipt_abmil_atec23_tpu_torch.slideio import native
         native.get_lib()
     except (ImportError, OSError, subprocess.CalledProcessError) as e:
         what = getattr(e, "name", None) or \
             "the native slide reader's build (libtiff/libjpeg headers)"
         log(f"serve phase: skipped, missing {what}")
         return
-    from hipt_abmil_atec23_tpu.slideio.synthetic import write_synthetic_slide
     from hipt_abmil_atec23_tpu_torch.engine.serve import (
         ServeConfig, ServeState, serve_once)
+    from hipt_abmil_atec23_tpu_torch.slideio.synthetic import (
+        write_synthetic_slide)
     with tempfile.TemporaryDirectory(dir=os.path.dirname(
             os.path.abspath(__file__))) as d:
         slide_dir = os.path.join(d, "slides")
@@ -399,7 +612,7 @@ def phase_serve(dev, encoder, clam, *, slide=SLIDE, region=REGION) -> None:
             f"{sum(r['n_regions'] for r in done)} regions in {wall:.2f} s")
 
 
-# ------------------------------------------------------------------ phase 5
+# ------------------------------------------------------------------ phase 6
 def _busy_us(spans) -> float:
     """Length of the union of (start, end) intervals."""
     busy, end = 0.0, -math.inf
@@ -410,28 +623,55 @@ def _busy_us(spans) -> float:
     return busy
 
 
-def phase_profile(dev, encoder, path, *, slide=SLIDE, region=REGION) -> None:
+def _profile_dct_decode(dev, dct_slide, region) -> None:
+    """The DCT rung's device decode of one batch already on the card,
+    stage by stage (CUDA events): the three unpack launches, the whole
+    unpack with its DC chain and escape scatters, the planes (adding the
+    IDCT, crop and mask), and RGB."""
+    coords = grid_coords(dct_slide.level_dimensions[0][0], region)[:2]
+    _, pack = _device_pack(dct_slide, coords, dev, region=region)
+    q = pack[27].to(torch.float32)
+    comps = [(pack[9 * c:9 * c + 9], q[c].contiguous()) for c in range(3)]
+    unpack = [(f[1], f[2], f[3], f[4], qc, f[0].shape[1] * f[0].shape[2])
+              for f, qc in comps]
+    with torch.inference_mode():
+        stages = {
+            "dct_unpack kernel (3 launches)": gpu_timer(
+                lambda: [jpegdct.dct_unpack(*a) for a in unpack]),
+            "unpack + DC chain + escape scatters": gpu_timer(
+                lambda: [jpegdct._unpack_component(*f, qc)
+                         for f, qc in comps]),
+            "planes (+ IDCT, crop, white mask)": gpu_timer(
+                lambda: jpegdct.dct_regions_to_planes(*pack)),
+            "RGB (+ upsample, colour)": gpu_timer(
+                lambda: jpegdct.dct_regions_to_rgb(*pack))}
+    for name, ms in stages.items():
+        log(f"profile: DCT decode, {name}: {ms / len(coords):.3f} "
+            f"ms/region")
+
+
+def phase_profile(dev, encoder, planes, dct_slide, path, *, slide=SLIDE,
+                  region=REGION) -> None:
     """Where one slide's warm encode_stream time goes: the stream's wall,
     its stages timed apart (host plane read, H2D of the pinned planes,
     YCbCr -> RGB + normalize, the encoder on planes and on RGB already on
-    the card), and the device's busy share and kernel table from
-    torch.profiler over one more stream, the table written to ``path``."""
+    the card, the DCT rung's decode stages), and the device's busy share
+    and kernel table from torch.profiler over one more stream, the table
+    written to ``path``."""
     from torch.profiler import ProfilerActivity, profile
     from hipt_abmil_atec23_tpu_torch.ops.yuv import yuv_planes_to_rgb
-    s = PlaneSlide(*he_like_planes(10, slide))
-    grid = np.arange(0, slide, region)
-    coords = np.stack(np.meshgrid(grid, grid, indexing="ij"),
-                      -1).reshape(-1, 2)[:, ::-1].copy()
+    s = PlaneSlide(*planes)
+    coords = grid_coords(slide, region)
     jobs, n, bs = [("p0", s, coords)], len(coords), encoder.batch_size
     for _ in range(2):
         _, wall = encode_slides(jobs, encoder, region)
         log(f"profile: stream wall ms/region {wall * 1e3 / n:.2f}")
     t0 = time.perf_counter()
     for i in range(0, n, bs):
-        planes = s.read_regions_yuv420(coords[i:i + bs], 0, (region, region))
+        yuv = s.read_regions_yuv420(coords[i:i + bs], 0, (region, region))
     log(f"profile: host plane read ms/region "
         f"{(time.perf_counter() - t0) * 1e3 / n:.2f}")
-    host = [torch.from_numpy(a).pin_memory() for a in planes]
+    host = [torch.from_numpy(a).pin_memory() for a in yuv]
     on_dev = [t.to(dev) for t in host]
     rgb = torch.from_numpy(s.read_regions(coords[:bs], 0, (region, region)))
     rgb = rgb.to(dev)
@@ -449,6 +689,7 @@ def phase_profile(dev, encoder, path, *, slide=SLIDE, region=REGION) -> None:
     for name, ms in stages.items():
         log(f"profile: {name} ms/region {ms / k:.2f}"
             + (f" ({mb:.1f} MB/region)" if name.startswith("H2D") else ""))
+    _profile_dct_decode(dev, dct_slide, region)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         _, wall = encode_slides(jobs, encoder, region)
@@ -456,7 +697,7 @@ def phase_profile(dev, encoder, path, *, slide=SLIDE, region=REGION) -> None:
                   if e.device_type == torch.autograd.DeviceType.CUDA]
     if not dev_events:
         raise SystemExit("torch.profiler recorded no device activity")
-    busy =_busy_us((e.time_range.start, e.time_range.end)
+    busy = _busy_us((e.time_range.start, e.time_range.end)
                     for e in dev_events) / 1e3
     by_name = {}
     for e in dev_events:
@@ -481,20 +722,29 @@ def phase_profile(dev, encoder, path, *, slide=SLIDE, region=REGION) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", metavar="PATH",
-                    help="also profile one slide's encode_stream (phase 5) "
+                    help="also profile one slide's encode_stream (phase 6) "
                          "and write the kernel table to PATH")
     args = ap.parse_args()
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in f32
     torch.backends.cudnn.allow_tf32 = False
     smi = phase_device()
     dev = require_cuda()
-    records = phase_kernels(dev)
-    res = phase_slice(dev)
+    t0 = time.perf_counter()
+    planes = [he_like_planes(10 + i, SLIDE) for i in range(2)]
+    dct_slides = [DctMemorySlide(*p[1:]) for p in planes]
+    log(f"fixtures: {len(planes)} x {SLIDE}^2 texture, planes and JPEG "
+        f"coefficients in {time.perf_counter() - t0:.1f} s")
+    records = phase_kernels(dev, dct_slides[0])
+    res = phase_slice(dev, planes)
+    dres = phase_dct_slice(dev, res, dct_slides)
     phase_serve(dev, res["encoder"], res["clam"])
     if args.profile:
-        phase_profile(dev, res["encoder"], args.profile)
+        phase_profile(dev, res["encoder"], planes[0], dct_slides[0],
+                      args.profile)
     for name, rec in records.items():
-        rec["launches"] = res["launches"][name]
+        rec["launches"] = dres["launches"][name]
+        rec["launches_by_path"] = {"plane": res["launches"][name],
+                                   "dct": dres["launches"][name]}
     log(f"card: {smi}")
     log(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -2,19 +2,26 @@
 hipt_abmil_atec23_tpu.
 
 The JAX package stays the reference; this package mirrors its layout so each
-module has a counterpart there. It runs the serving path: slide tiling
-(shared with the JAX package's framework-neutral ``slideio``), the HIPT_4K
-region encoder (ViT-256 -> ViT-4K) and the CLAM_SB gated-attention MIL head.
+module has a counterpart there, and imports nothing of it. It runs the
+serving path: slide tiling, the transfer rungs (sparse-DCT packs, YCbCr
+planes, RGB) with their decode on the device, the HIPT_4K region encoder
+(ViT-256 -> ViT-4K) and the CLAM_SB gated-attention MIL head.
 
-Every transformer block and the MIL pooling run through CUDA kernels written
-by hand for sm_90a (``kernels/csrc``). The rule is by tensor device: a CUDA
-tensor launches the kernel (or raises), a CPU tensor runs the kernel's plain
-PyTorch version beside it.
+The DCT unpack, every transformer block and the MIL pooling run through
+CUDA kernels written by hand for sm_90a (``kernels/csrc``). The rule is by
+tensor device: a CUDA tensor launches the kernel (or raises), a CPU tensor
+runs the kernel's plain PyTorch version beside it.
 
 Subpackages:
   models   — ViT-256 / ViT-4K / HIPT4K, CLAM_SB, checkpoint bridges
-  ops      — fused ViT block, gated-attention pooling, YCbCr decode, masking
-  engine   — encoder + slide stream, serving
+  ops      — DCT decode, fused ViT block, gated-attention pooling, YCbCr
+             decode, masking
+  engine   — encoder + slide stream with its rung selector, serving
+  slideio  — native slide reader binding, segmentation, coordinates,
+             synthetic and in-memory slides
+  utils    — the configuration dataclasses
+  data     — feature-bag storage
+  explain  — attention blockmaps
   kernels  — CUDA sources and their nvcc/ctypes build
 """
 

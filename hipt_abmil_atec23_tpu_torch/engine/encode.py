@@ -1,43 +1,152 @@
 """Feature extraction: slides + coords -> per-slide HIPT_4K feature bags.
 
-Counterpart of hipt_abmil_atec23_tpu/engine/encode.py for the pixel rungs:
+Counterpart of hipt_abmil_atec23_tpu/engine/encode.py:
 
   one decode worker (native threaded region reads, ``prefetch`` batches
   ahead) -> pinned host tensors -> H2D on a dedicated CUDA stream ->
   encoder on the current stream, collected one batch deep
 
-Each region rides the raw YCbCr plane rung when the slide offers one (1.5
-bytes/px for 4:2:0, RGB rebuilt on the device by ops/yuv.py) and the RGB
-rung (3 bytes/px) otherwise. Without the sparse-DCT rung the planes always
-ship fewer bytes and decode cheaper on the host, so the JAX package's
-cost-model rung selector is not needed here.
+Each batch rides one of three transfer rungs, cheapest wire bytes first:
+
+  1. dct: sparse quantized-DCT packs (ops/jpegdct.py; 0.46 bytes/px on
+     chip_smoke.py's quality-80 fixture at its probed caps) for JPEG YCbCr
+     4:2:0 slides on an even region grid; the card unpacks
+     (kernels/csrc/dct_unpack.cu), IDCTs and rebuilds RGB;
+  2. yuv: raw YCbCr planes (1.5 bytes/px for 4:2:0, ops/yuv.py);
+  3. rgb: RGB pixels (3 bytes/px).
+
+With ``adaptive_rungs`` the stream picks the rung per batch by predicted
+pipeline cost (``select_rung``) once it has a wire-rate estimate, from
+three EWMAs it keeps itself: host decode ms/Mpx per rung, device ms/Mpx
+per rung, and the wire rate from CUDA events around each H2D on the copy
+stream. A CPU encoder has no wire, so it keeps the byte-lightest rung.
 """
 from __future__ import annotations
 
+import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
-from typing import Iterable, Optional
+from typing import Iterable, NamedTuple, Optional
 
 import numpy as np
 import torch
 import torch.nn as nn
 
-from hipt_abmil_atec23_tpu.utils.config import EncoderConfig
 from hipt_abmil_atec23_tpu_torch.device import resolve_device
 from hipt_abmil_atec23_tpu_torch.models.hipt import (
     hipt_eval_normalize, make_hipt_encoder)
+from hipt_abmil_atec23_tpu_torch.ops.jpegdct import _G, dct_regions_to_rgb
 from hipt_abmil_atec23_tpu_torch.ops.yuv import yuv_planes_to_rgb
+from hipt_abmil_atec23_tpu_torch.utils.config import EncoderConfig
+
+
+class DctBatch(NamedTuple):
+    """One compute batch shipped as sparse quantized-DCT v3 packs instead
+    of pixels. Field order matches ops/jpegdct.dct_regions_to_rgb (27
+    component arrays + qt + valid + off). This is a tuple subtype:
+    dispatchers test DctBatch BEFORE the plain-tuple (YUV planes) case."""
+    y_dc8: np.ndarray   # [n, h/8, w/8] int8 delta-coded DC
+    y_bmc: np.ndarray   # [n, ceil(bl/2)] uint8 4-bit bitmap prefix lengths
+    y_bmb: np.ndarray   # [n, ng*capbm] uint8 group-padded bitmap prefixes
+    y_valn: np.ndarray  # [n, cap/2] uint8 nibble-packed AC values
+    y_esc8: np.ndarray  # [n, ng*capge] int8 group-padded AC escapes
+    y_aidx: np.ndarray  # [n, cap_a] int32 |v|>127-escape coef indices
+    y_aval: np.ndarray  # [n, cap_a] int16 escape values
+    y_didx: np.ndarray  # [n, cap_d] int32 DC-escape block indices
+    y_dval: np.ndarray  # [n, cap_d] int16 DC-escape deltas
+    cb_dc8: np.ndarray
+    cb_bmc: np.ndarray
+    cb_bmb: np.ndarray
+    cb_valn: np.ndarray
+    cb_esc8: np.ndarray
+    cb_aidx: np.ndarray
+    cb_aval: np.ndarray
+    cb_didx: np.ndarray
+    cb_dval: np.ndarray
+    cr_dc8: np.ndarray
+    cr_bmc: np.ndarray
+    cr_bmb: np.ndarray
+    cr_valn: np.ndarray
+    cr_esc8: np.ndarray
+    cr_aidx: np.ndarray
+    cr_aval: np.ndarray
+    cr_didx: np.ndarray
+    cr_dval: np.ndarray
+    qt: np.ndarray      # [3, 64] int32 quant tables (per slide)
+    valid: np.ndarray   # [n, 2] int32 in-slide extents (white past them)
+    off: np.ndarray     # [n, 2] int32 device crop offsets (grids off the
+                        # 16px MCU lattice), or [n, 0] for exact packs
+
+
+# --------------------------------------------------------------------------
+# Rate-adaptive transfer-rung selection
+# --------------------------------------------------------------------------
+# Seed per-megapixel stage costs at 4096^2 regions, batch 2, full-width
+# HIPT_4K in bf16: device ms/Mpx of each rung's entry with its input
+# already on the card (CUDA events), and host read ms/Mpx of chip_smoke.py's
+# in-memory fixture slides (slideio/synthetic.DctMemorySlide: the numpy
+# packer, numpy-decoded planes and a torch CPU colour conversion, not
+# libjpeg). Both from chip_smoke.py's DCT phase ("rung seeds" line) on an
+# NVIDIA H100 80GB HBM3 at a 700 W power limit. Seeds only: encode_stream
+# re-calibrates both tables from its own per-batch decode and device times
+# (EWMA). Only the relative costs matter.
+RUNG_BYTES_PER_PX = {"yuv": 1.5, "rgb": 3.0}   # dct is measured per-slide
+RUNG_HOST_MS_PER_MPX = {"dct": 48.99, "yuv": 0.43, "rgb": 34.73}
+RUNG_DEV_MS_PER_MPX = {"dct": 3.76, "yuv": 3.61, "rgb": 3.46}
+
+
+def select_rung(feasible, wire_mbps, region_px, dct_bytes_per_px=None,
+                current=None, hysteresis=0.85,
+                host_ms_mpx=None, dev_ms_mpx=None, yuv_bytes_per_px=None):
+    """Pick the transfer rung with the lowest predicted per-region cost.
+
+    The stream pipelines three serialized stages (host decode worker ->
+    H2D -> device), so a rung's steady-state cost is max(wire_s, host_s,
+    device_s) per region. ``current`` + ``hysteresis``: a sitting rung is
+    kept unless the challenger is predicted at least (1 - hysteresis)
+    cheaper. ``host_ms_mpx`` / ``dev_ms_mpx``: per-rung stage-cost tables
+    (ms per megapixel), the seeds above by default; streams pass their own
+    EWMA-calibrated tables. ``yuv_bytes_per_px``: 1.5 for 4:2:0, 2.0 for
+    4:2:2. Returns (rung, costs_dict)."""
+    host_tab = host_ms_mpx or RUNG_HOST_MS_PER_MPX
+    dev_tab = dev_ms_mpx or RUNG_DEV_MS_PER_MPX
+    mpx = region_px / 1e6
+    costs = {}
+    for r in feasible:
+        bpp = (dct_bytes_per_px if r == "dct"
+               else yuv_bytes_per_px or RUNG_BYTES_PER_PX[r] if r == "yuv"
+               else RUNG_BYTES_PER_PX[r])
+        if bpp is None:
+            continue
+        wire_s = (region_px * bpp / (wire_mbps * 1e6)
+                  if wire_mbps and wire_mbps > 0 else float("inf"))
+        host_s = mpx * host_tab[r] / 1e3
+        dev_s = mpx * dev_tab[r] / 1e3
+        costs[r] = max(wire_s, host_s, dev_s)
+    if not costs:
+        return "rgb", costs
+    best = min(costs, key=costs.get)
+    if (current in costs and best != current
+            and costs[best] > hysteresis * costs[current]):
+        return current, costs
+    return best, costs
 
 
 @dataclass
 class Encoder:
-    """A fixed-batch region encoder on one device: uint8 RGB [B, S, S, 3]
-    or YCbCr planes -> [B, feat_dim] f32, the normalize fused in."""
+    """A fixed-batch region encoder on one device: uint8 RGB [B, S, S, 3],
+    YCbCr planes or a sparse-DCT pack -> [B, feat_dim] f32, the normalize
+    fused in. ``dct_rung`` offers the sparse-DCT entry to encode_stream
+    (the JAX package's ``apply_dct is not None``). ``plain_unpack`` runs
+    the DCT unpack's plain version on the card too, for a reference pass;
+    the serving path leaves it off."""
     model: nn.Module
     batch_size: int
     input_size: int      # spatial size S of one region
     feat_dim: int
     device: torch.device
+    dct_rung: bool = True
+    plain_unpack: bool = False
 
     def apply(self, batch_u8: torch.Tensor) -> torch.Tensor:
         with torch.inference_mode():
@@ -48,6 +157,12 @@ class Encoder:
         """Raw-plane entry: Y [B, S, S], Cb/Cr at 4:2:0 or 4:2:2."""
         with torch.inference_mode():
             return self.model(yuv_planes_to_rgb(y, cb, cr) / 127.5 - 1.0)
+
+    def apply_dct(self, *pack: torch.Tensor) -> torch.Tensor:
+        """Sparse-DCT entry: the 30 DctBatch fields on the device."""
+        with torch.inference_mode():
+            rgb = dct_regions_to_rgb(*pack, plain=self.plain_unpack)
+            return self.model(rgb / 127.5 - 1.0)
 
 
 def build_encoder(cfg: EncoderConfig, *, device, model: nn.Module = None,
@@ -90,11 +205,39 @@ def _pad_to(batch: np.ndarray, k: int, bs: int) -> np.ndarray:
 
 
 def _decode_batch(slide, chunk, *, patch_level, size, bs, n_io_threads,
-                  use_yuv=None):
-    """Read one batch of regions: the raw planes when ``use_yuv`` is the
-    slide's chroma layout (sh, sv), RGB otherwise or when the plane read
-    refuses these coords (odd origins); tail-padded to ``bs``."""
+                  use_yuv=None, dct_ctx=None):
+    """Read one batch of regions, tail-padded to ``bs``. ``dct_ctx`` =
+    (qt, caps) tries the sparse-coefficient pack first; any flagged region
+    drops the whole chunk to the pixel reads below, never a mixed or
+    truncated payload. Then the raw planes when ``use_yuv`` is the slide's
+    chroma layout (sh, sv), RGB otherwise or when the plane read refuses
+    these coords (odd origins)."""
     k = len(chunk)
+    if dct_ctx is not None:
+        qt, caps = dct_ctx
+        try:
+            r = slide.read_regions_dct(chunk, patch_level, (size, size),
+                                       cap_y_pb=caps[0], cap_c_pb=caps[1],
+                                       cap_ge_y=caps[2], cap_ge_c=caps[3],
+                                       cap_aesc_y=caps[4],
+                                       cap_aesc_c=caps[5],
+                                       cap_desc_y=caps[6],
+                                       cap_desc_c=caps[7],
+                                       cap_bm_y=caps[8], cap_bm_c=caps[9],
+                                       n_threads=n_io_threads or k)
+            if not r.status.any():
+                comp = [_pad_to(a, k, bs) for a in r[:27]]
+                # escape-index pads must stay -1 (dropped by the device
+                # scatter); _pad_to zero-fills, and index 0 is a real slot
+                if k < bs:
+                    for a in (comp[5], comp[7], comp[14], comp[16],
+                              comp[23], comp[25]):
+                        a[k:] = -1
+                return DctBatch(*comp, np.asarray(qt, np.int32),
+                                _pad_to(r.valid, k, bs),
+                                _pad_to(r.off, k, bs))
+        except (IOError, AttributeError):
+            pass  # unreadable through the coefficient path — pixels below
     if use_yuv:
         try:
             if hasattr(slide, "read_regions_planes"):
@@ -117,6 +260,124 @@ def _decode_batch(slide, chunk, *, patch_level, size, bs, n_io_threads,
 def _batches(coords: np.ndarray, batch: int) -> Iterable[np.ndarray]:
     for i in range(0, len(coords), batch):
         yield coords[i:i + batch]
+
+
+_AESC_BUCKETS = (256, 1024, 4096, 16384, 65536, 262144)
+_DESC_BUCKETS = (256, 512, 1024, 2048, 4096, 8192, 16384, 32768, 65536)
+
+
+def _esc_bucket(need, buckets):
+    return next((b for b in buckets if b >= need), 4 * buckets[-1])
+
+
+def _dct_group_fills(bmc, bmb, esc8, bl, n, _G):
+    """Per-group demand distributions recovered from a max-cap probe pack
+    (nothing spilled there, so shipped == demanded): nonzero-coefficient
+    count (value slots), bitmap prefix bytes, and escape bytes. `bl` is the
+    pack's actual block count (off-MCU grids pad the geometry)."""
+    ng = (bl + _G - 1) // _G
+    pl = np.stack([bmc & 0xF, (bmc >> 4) & 0xF],
+                  -1).reshape(n, -1)[:, :bl].astype(np.int64)
+    pad = ng * _G - bl
+    if pad:
+        pl = np.pad(pl, ((0, 0), (0, pad)))
+    capbm = bmb.shape[-1] // ng
+    bits = np.unpackbits(bmb.reshape(n, ng, capbm), axis=-1,
+                         bitorder="little")
+    gv = bits.reshape(n, ng, capbm * 8).sum(-1).astype(np.int64)
+    gb = pl.reshape(n, ng, _G).sum(-1)
+    ge = (esc8.reshape(n, ng, -1) != 0).sum(-1).astype(np.int64)
+    return gv, gb, ge
+
+
+def _dct_best_caps(gv, gb, ge, aesc_true, pb_buckets, bm_buckets,
+                   ge_buckets, ng, _G):
+    """Exact byte-cost argmin over (value, bitmap, escape) group caps for
+    one component class. The packer spills any group-budget shortfall to
+    the explicit 6-B/slot aesc stream, so the cost of a cap is its fixed
+    group padding plus the bucketed explicit stream absorbing the worst
+    sampled region's spill (x2 headroom). Returns (pb, bm, geb,
+    aesc_cap)."""
+    coeff_per_bmbyte = max(1.0, float(gv.sum()) / max(1, gb.sum()))
+    sv = {pb: int(np.maximum(gv - pb * _G, 0).sum(-1).max())
+          for pb in pb_buckets}
+    sb = {bm: int(np.maximum(gb - bm * _G, 0).sum(-1).max() *
+                  coeff_per_bmbyte) for bm in bm_buckets}
+    se = {geb: int(np.maximum(ge - geb, 0).sum(-1).max())
+          for geb in ge_buckets}
+    best = None
+    for pb in pb_buckets:
+        for bm in bm_buckets:
+            for geb in ge_buckets:
+                spill = sv[pb] + sb[bm] + se[geb]
+                aesc = _esc_bucket(int(aesc_true) + spill * 2 + 64,
+                                   _AESC_BUCKETS)
+                cost = ng * (pb * _G / 2 + bm * _G + geb) + 6 * aesc
+                if best is None or cost < best[0]:
+                    best = (cost, pb, bm, geb, aesc)
+    return best[1], best[2], best[3], best[4]
+
+
+def probe_dct_caps(slide, coords, patch_level, size):
+    """Probe a slide's sparse-DCT pack capacities for a region stream: read
+    3 sample regions spread over the slide at maximal caps, recover the
+    per-group demand distributions, then pick each group cap by exact
+    byte-cost argmin (hot groups spill to the explicit aesc stream).
+    Escape and DC capacities are bucketed so every batch in the stream
+    shares one shape.
+
+    Returns (caps, bytes_per_px) — caps = (y_pb, c_pb, ge_y, ge_c, aesc_y,
+    aesc_c, desc_y, desc_c, bm_y, bm_c) as read_regions_dct takes them,
+    bytes_per_px the exact aligned-grid pack size at those caps — or None
+    when this slide or grid cannot ride the coefficient path."""
+    sample = np.asarray(coords)[
+        np.unique(np.linspace(0, len(coords) - 1, 3, dtype=int))]
+    try:
+        ybl = (size // 8) ** 2
+        r = slide.read_regions_dct(
+            sample, patch_level, (size, size), cap_y_pb=63,
+            cap_c_pb=63, cap_ge_y=63 * _G, cap_ge_c=63 * _G,
+            cap_aesc_y=ybl, cap_aesc_c=ybl // 4,
+            cap_desc_y=ybl, cap_desc_c=ybl // 4,
+            cap_bm_y=8, cap_bm_c=8,
+            n_threads=len(sample))
+    except (IOError, AttributeError):
+        return None
+    if r.status.any():
+        return None
+    cnts = r.cnts  # [n, comp, {nnz, aesc, desc, gvdem, gedem, gbdem}]
+    n = len(sample)
+    ybl = r.y_dc8.shape[1] * r.y_dc8.shape[2]
+    cbl = r.cb_dc8.shape[1] * r.cb_dc8.shape[2]
+    ng_y = (ybl + _G - 1) // _G
+    ng_c = (cbl + _G - 1) // _G
+    gv_y, gb_y, ge_y_f = _dct_group_fills(r.y_bmc, r.y_bmb, r.y_esc8,
+                                          ybl, n, _G)
+    cb_f = _dct_group_fills(r.cb_bmc, r.cb_bmb, r.cb_esc8, cbl, n, _G)
+    cr_f = _dct_group_fills(r.cr_bmc, r.cr_bmb, r.cr_esc8, cbl, n, _G)
+    gv_c, gb_c, ge_c_f = (np.concatenate([a, b])
+                          for a, b in zip(cb_f, cr_f))
+
+    y_pb, bm_y, geb_y, aesc_y = _dct_best_caps(
+        gv_y, gb_y, ge_y_f, cnts[:, 0, 1].max(),
+        (4, 8, 12, 16, 24, 32, 48, 63), (2, 3, 4, 5, 6, 7, 8),
+        (4, 8, 16, 24, 32, 48, 64, 96, 128, 256), ng_y, _G)
+    c_pb, bm_c, geb_c, aesc_c = _dct_best_caps(
+        gv_c, gb_c, ge_c_f, cnts[:, 1:, 1].max(),
+        (2, 4, 6, 8, 12, 16, 24, 32), (1, 2, 3, 4, 5, 6, 7, 8),
+        (2, 4, 8, 16, 24, 32, 48, 64, 128), ng_c, _G)
+
+    desc_y = _esc_bucket(int(cnts[:, 0, 2].max()) * 2 + 64, _DESC_BUCKETS)
+    desc_c = _esc_bucket(int(cnts[:, 1:, 2].max()) * 2 + 64, _DESC_BUCKETS)
+    caps = (y_pb, c_pb, geb_y, geb_c, aesc_y, aesc_c, desc_y, desc_c,
+            bm_y, bm_c)
+    # exact per-region wire bytes at these caps (aligned grid; dc8 + bmc
+    # = 1.5 B/block, bitmap prefixes bm B/block, nibbles pb/2 B/block,
+    # escape bytes ge/_G B/block, explicit escapes 6 B/slot) -> bytes/px
+    nb = (ybl * (1.5 + bm_y + y_pb / 2 + geb_y / _G)
+          + 2 * cbl * (1.5 + bm_c + c_pb / 2 + geb_c / _G)
+          + 6 * (aesc_y + 2 * aesc_c) + 6 * (desc_y + 2 * desc_c))
+    return caps, nb / float(size * size)
 
 
 def _drain_in_order(jobs, feats, remaining, next_yield, feat_dim):
@@ -146,9 +407,15 @@ def _plane_layout(slide, patch_level: int):
     return None
 
 
+def _kind(buf) -> str:
+    return ("dct" if isinstance(buf, DctBatch)
+            else "yuv" if isinstance(buf, tuple) else "rgb")
+
+
 def encode_stream(jobs, encoder: Encoder, *, patch_level: int = 0,
                   region_size: Optional[int] = None, n_io_threads: int = 0,
-                  prefetch: int = 3):
+                  prefetch: int = 3, stats: Optional[dict] = None,
+                  adaptive_rungs: bool = True):
     """Encode a sequence of slides through one continuous pipeline.
 
     ``jobs``: (slide_id, slide, coords) triples. Yields (slide_id,
@@ -162,6 +429,15 @@ def encode_stream(jobs, encoder: Encoder, *, patch_level: int = 0,
     features there, and only then collects the previous batch, so batch
     i+1's transfer overlaps batch i's compute. On a CPU encoder the same
     loop runs without pinning or streams.
+
+    ``adaptive_rungs``: pick each batch's rung with ``select_rung`` at the
+    measured wire rate (an EWMA of the H2D copies timed with CUDA events)
+    and the stream's EWMA-calibrated host and device tables; until a wire
+    estimate exists, and always on a CPU encoder (no copy to time), the
+    byte-lightest feasible rung is used. ``stats`` (a dict) receives
+    ``rung_decisions`` ([batch, rung, MB/s] on each change),
+    ``regions_{dct,yuv,rgb}``, ``h2d_bytes``, ``dct_caps``, the live
+    ``rung_calibration`` tables and ``wire_mbps_final``.
     """
     size = region_size or encoder.input_size
     bs = encoder.batch_size
@@ -169,11 +445,37 @@ def encode_stream(jobs, encoder: Encoder, *, patch_level: int = 0,
     cuda = dev.type == "cuda"
     jobs = list(jobs)
 
+    dct_caps = None
+    dct_bpp = None  # measured wire bytes/px of the dct rung at these caps
+
+    def _probe_caps(slide, coords):
+        nonlocal dct_caps, dct_bpp
+        if dct_caps is None:
+            probed = probe_dct_caps(slide, coords, patch_level, size)
+            if probed is None:
+                dct_caps = False
+            else:
+                dct_caps, dct_bpp = probed
+
     items = []
     for ji, (sid, slide, coords) in enumerate(jobs):
         use_yuv = _plane_layout(slide, patch_level) if size % 2 == 0 else None
+        dct_ctx = None
+        if encoder.dct_rung and size % 16 == 0 and len(coords) > 0:
+            ds = slide.level_downsamples[patch_level]
+            lvl = np.stack([(np.asarray(coords)[:, 0] / ds[0]),
+                            (np.asarray(coords)[:, 1] / ds[1])],
+                           axis=1).astype(np.int64)
+            if not (lvl % 2).any():  # even grid: the reader aligns to the
+                # 16 px MCU lattice and the device crops
+                qt = getattr(slide, "dct_probe",
+                             lambda lvl: None)(patch_level)
+                if qt is not None:
+                    _probe_caps(slide, coords)
+                    if dct_caps:
+                        dct_ctx = (qt, dct_caps)
         for chunk in _batches(coords, bs):
-            items.append((ji, slide, chunk, use_yuv))
+            items.append((ji, slide, chunk, use_yuv, dct_ctx))
     feats = [np.empty((len(c), encoder.feat_dim), np.float32)
              for _, _, c in jobs]
     remaining = [max(1, -(-len(c) // bs)) for _, _, c in jobs]
@@ -183,30 +485,96 @@ def encode_stream(jobs, encoder: Encoder, *, patch_level: int = 0,
             yield sid, np.zeros((0, encoder.feat_dim), np.float32)
         return
 
+    # live wire-rate estimate (MB/s) and the selector's stage-cost tables,
+    # EWMA-calibrated in place from this stream's own measurements
+    link = {"mbps": None, "rung": None, "batch": 0,
+            "host_ms_mpx": dict(RUNG_HOST_MS_PER_MPX),
+            "dev_ms_mpx": dict(RUNG_DEV_MS_PER_MPX)}
+    if stats is not None:
+        stats["rung_calibration"] = {"host_ms_mpx": link["host_ms_mpx"],
+                                     "dev_ms_mpx": link["dev_ms_mpx"]}
+
+    def _ewma(table, rung, sample_ms_mpx, w=0.3):
+        table[rung] = (1.0 - w) * table[rung] + w * sample_ms_mpx
+
     def read_batch(item):
-        _, slide, chunk, use_yuv = item
+        _, slide, chunk, use_yuv, dct_ctx = item
+        if adaptive_rungs and link["mbps"] and (use_yuv or dct_ctx):
+            feasible = ["rgb"] + (["yuv"] if use_yuv else []) \
+                + (["dct"] if dct_ctx is not None else [])
+            yuv_bpp = (1.0 + 2.0 / (use_yuv[0] * use_yuv[1])
+                       if isinstance(use_yuv, tuple) else None)
+            rung, _ = select_rung(feasible, link["mbps"], size * size,
+                                  dct_bytes_per_px=dct_bpp,
+                                  current=link["rung"],
+                                  host_ms_mpx=link["host_ms_mpx"],
+                                  dev_ms_mpx=link["dev_ms_mpx"],
+                                  yuv_bytes_per_px=yuv_bpp)
+            if rung != "dct":
+                dct_ctx = None
+            if rung == "rgb":
+                use_yuv = None
+            if stats is not None and rung != link["rung"]:
+                stats.setdefault("rung_decisions", []).append(
+                    [link["batch"], rung, round(link["mbps"], 1)])
+            link["rung"] = rung
+        link["batch"] += 1
+        td0 = time.perf_counter()
         buf = _decode_batch(slide, chunk, patch_level=patch_level, size=size,
-                            bs=bs, n_io_threads=n_io_threads, use_yuv=use_yuv)
-        host = tuple(torch.from_numpy(a) for a in
-                     (buf if isinstance(buf, tuple) else (buf,)))
+                            bs=bs, n_io_threads=n_io_threads, use_yuv=use_yuv,
+                            dct_ctx=dct_ctx)
+        # host-decode calibration, billed to the rung the batch actually
+        # rode (a cap-overflow fallback bills the pixels it shipped)
+        kind = _kind(buf)
+        _ewma(link["host_ms_mpx"], kind,
+              (time.perf_counter() - td0) * 1e3
+              / (len(chunk) * size * size / 1e6))
+        leaves = buf if isinstance(buf, tuple) else (buf,)
+        if stats is not None:
+            stats["h2d_bytes"] = (stats.get("h2d_bytes", 0)
+                                  + sum(a.nbytes for a in leaves))
+            stats[f"regions_{kind}"] = (stats.get(f"regions_{kind}", 0)
+                                        + len(chunk))
+            if dct_caps:
+                stats["dct_caps"] = dct_caps
+        host = tuple(torch.from_numpy(a) for a in leaves)
         if cuda:
             host = tuple(t.pin_memory() for t in host)
-        return isinstance(buf, tuple), host
+        return kind, host
 
     copy_stream = torch.cuda.Stream(dev) if cuda else None
 
+    def timer():
+        return torch.cuda.Event(enable_timing=True)
+
     def to_device(host):
+        """(device tensors, (start, end, bytes) of the timed copy)."""
         if not cuda:
-            return host
+            return host, None
         compute = torch.cuda.current_stream(dev)
+        t0, t1 = timer(), timer()
         with torch.cuda.stream(copy_stream):
+            t0.record(copy_stream)
             on_dev = tuple(t.to(dev, non_blocking=True) for t in host)
-            ready = torch.cuda.Event()
-            ready.record(copy_stream)
-        compute.wait_event(ready)
+            t1.record(copy_stream)
+        compute.wait_event(t1)
         for t in on_dev:  # allocated on the copy stream, read on compute
             t.record_stream(compute)
-        return on_dev
+        return on_dev, (t0, t1, sum(t.nbytes for t in host))
+
+    def run(kind, bufs):
+        """Dispatch the encoder; returns (out, device-time handle)."""
+        fn = (encoder.apply_dct if kind == "dct"
+              else encoder.apply_yuv if kind == "yuv" else encoder.apply)
+        if not cuda:
+            t = time.perf_counter()
+            return fn(*bufs), time.perf_counter() - t
+        compute = torch.cuda.current_stream(dev)
+        t0, t1 = timer(), timer()
+        t0.record(compute)
+        out = fn(*bufs)
+        t1.record(compute)
+        return out, (t0, t1)
 
     def to_host(out):
         # D2H queued right behind this batch's compute, into pinned memory,
@@ -220,12 +588,22 @@ def encode_stream(jobs, encoder: Encoder, *, patch_level: int = 0,
         return host, done
 
     def collect(pend):
-        ji, k, host, done = pend
+        ji, k, kind, host, done, dev_t, wire = pend
         if done is not None:
             done.synchronize()
         feats[ji][offs[ji]:offs[ji] + k] = host[:k].float().numpy()
         offs[ji] += k
         remaining[ji] -= 1
+        # the batch is done, so its events have fired: calibrate the
+        # device table and the wire rate from them without another sync
+        dev_s = dev_t if not cuda else dev_t[0].elapsed_time(dev_t[1]) / 1e3
+        _ewma(link["dev_ms_mpx"], kind,
+              dev_s * 1e3 / (bs * size * size / 1e6))
+        if wire is not None:
+            ms = wire[0].elapsed_time(wire[1])
+            inst = wire[2] / 1e6 / max(ms / 1e3, 1e-9)
+            link["mbps"] = (inst if link["mbps"] is None
+                            else 0.7 * link["mbps"] + 0.3 * inst)
 
     window = max(1, prefetch)
     next_yield = 0
@@ -235,22 +613,24 @@ def encode_stream(jobs, encoder: Encoder, *, patch_level: int = 0,
     ex = ThreadPoolExecutor(max_workers=1)
     futures = [ex.submit(read_batch, it) for it in items[:window]]
     try:
-        for ci, (ji, _, chunk, _) in enumerate(items):
-            planes, host = futures[ci].result()
+        for ci, (ji, _, chunk, _, _) in enumerate(items):
+            kind, host = futures[ci].result()
             if ci + window < len(items):
                 futures.append(ex.submit(read_batch, items[ci + window]))
-            bufs = to_device(host)
-            out = encoder.apply_yuv(*bufs) if planes else encoder.apply(bufs[0])
+            bufs, wire = to_device(host)
+            out, dev_t = run(kind, bufs)
             if pending is not None:
                 collect(pending)
                 ready, next_yield = _drain_in_order(
                     jobs, feats, remaining, next_yield, encoder.feat_dim)
                 yield from ready
-            pending = (ji, len(chunk), *to_host(out))
+            pending = (ji, len(chunk), kind, *to_host(out), dev_t, wire)
         collect(pending)
         ready, next_yield = _drain_in_order(jobs, feats, remaining,
                                             next_yield, encoder.feat_dim)
         yield from ready
+        if stats is not None:
+            stats["wire_mbps_final"] = link["mbps"]
     finally:
         # runs on completion and on abandonment (GeneratorExit / consumer
         # exception). wait=True: an in-flight native read still holds the

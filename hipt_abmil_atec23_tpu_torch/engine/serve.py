@@ -2,12 +2,13 @@
 CLAM_SB, on the port.
 
 Counterpart of hipt_abmil_atec23_tpu/engine/serve.py ``serve_once`` /
-``serve_forever``. The framework-neutral parts are the JAX package's own
-(ServeConfig, discover, the journal helpers, the slide readers,
-segmentation, coordinates and the blockmap writer), so both
-packages keep one journal format and one set of output schemas: per-slide
-``results/<id>.json``, ``results/<id>_blockmap.h5`` (reference
-create_heatmaps.py:379-381) and an appended ``predictions.jsonl``.
+``serve_forever``. ServeConfig, discover and the journal helpers are the
+port's own copies of the JAX package's, as are the slide readers,
+segmentation, coordinates and the blockmap writer it calls (slideio/,
+explain/heatmaps.py), so both packages keep one journal format and one set
+of output schemas: a ``serve_journal.csv``, per-slide ``results/<id>.json``,
+``results/<id>_blockmap.h5`` (reference create_heatmaps.py:379-381) and an
+appended ``predictions.jsonl``.
 
 Slides that arrive together ride one encode_stream pipeline; a mid-stream
 failure falls back to one stream per unfinished slide, so only the slide
@@ -15,17 +16,115 @@ that fails is journaled 'error'.
 """
 from __future__ import annotations
 
+import csv
 import json
 import os
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
-from hipt_abmil_atec23_tpu.engine.serve import (  # noqa: F401 (re-exported)
-    ServeConfig, _journal_append, discover, load_journal)
+from hipt_abmil_atec23_tpu_torch.utils.config import (
+    EncoderConfig, ModelConfig, SegConfig, TileConfig)
+
+_DONE_STATUSES = ("done", "failed_seg")
+SLIDE_EXTS = (".tif", ".tiff", ".svs", ".png", ".jpg", ".jpeg")
+
+
+@dataclass
+class ServeConfig:
+    slide_dir: str
+    out_dir: str
+    ckpt_path: str                      # reference-layout torch .pt
+    encoder: EncoderConfig = field(default_factory=EncoderConfig)
+    model: ModelConfig = field(default_factory=ModelConfig)
+    tile: TileConfig = field(default_factory=lambda: TileConfig(
+        patch_size=4096, step_size=4096, seg=SegConfig(use_otsu=True)))
+    n_classes: int = 2
+    poll_s: float = 5.0                 # daemon poll interval
+    save_features: bool = False         # persist bags in FeatureBagStore
+    top_k: int = 8                      # top-attention regions per slide
+    max_retries: int = 3                # 'error' attempts before parking
+    min_stable_s: float = 10.0          # mtime age before a file is eligible
+
+
+def _journal_path(cfg: ServeConfig) -> str:
+    return os.path.join(cfg.out_dir, "serve_journal.csv")
+
+
+def _journal_scan(cfg: ServeConfig):
+    """One pass over the journal: (slide_id -> last status, slide_id ->
+    ['error' row times], slide_id -> last row time). Row times let
+    discover() tell a replaced file's old rows from its own."""
+    path = _journal_path(cfg)
+    status: Dict[str, str] = {}
+    errors: Dict[str, list] = {}
+    last_time: Dict[str, float] = {}
+    if os.path.exists(path):
+        with open(path, newline="") as f:
+            for row in csv.DictReader(f):
+                sid = row["slide_id"]
+                try:
+                    t = float(row.get("time") or 0.0)
+                except ValueError:
+                    t = 0.0
+                status[sid] = row["status"]
+                last_time[sid] = t
+                if row["status"] == "error":
+                    errors.setdefault(sid, []).append(t)
+    return status, errors, last_time
+
+
+def load_journal(cfg: ServeConfig) -> Dict[str, str]:
+    """slide_id -> last status."""
+    return _journal_scan(cfg)[0]
+
+
+def _journal_append(cfg: ServeConfig, slide_id: str, status: str,
+                    detail: str = "") -> None:
+    path = _journal_path(cfg)
+    os.makedirs(cfg.out_dir, exist_ok=True)
+    new = not os.path.exists(path)
+    with open(path, "a", newline="") as f:
+        w = csv.writer(f)
+        if new:
+            w.writerow(["slide_id", "status", "time", "detail"])
+        # microsecond precision: discover() compares row times to file
+        # mtimes, and a coarser time can round below a fresh mtime
+        w.writerow([slide_id, status, f"{time.time():.6f}", detail])
+
+
+def discover(cfg: ServeConfig) -> List[str]:
+    """Slide files in slide_dir not yet finished per the journal.
+
+    A file younger than ``min_stable_s`` may still be uploading and waits.
+    Journal rows older than the file's mtime belong to a replaced file, so
+    a re-upload resets its retry budget and clears a stale 'done' or
+    'failed_seg'. A slide with ``max_retries`` 'error' rows is parked."""
+    journal, errors, last_time = _journal_scan(cfg)
+    now = time.time()
+    pending = []
+    for fname in sorted(os.listdir(cfg.slide_dir)):
+        if not fname.lower().endswith(SLIDE_EXTS):
+            continue
+        path = os.path.join(cfg.slide_dir, fname)
+        try:
+            mtime = os.path.getmtime(path)
+        except OSError:
+            continue  # vanished between listdir and stat
+        if now - mtime < cfg.min_stable_s:
+            continue  # possibly mid-upload; next poll will see it stable
+        sid = os.path.splitext(fname)[0]
+        replaced = mtime > last_time.get(sid, float("-inf"))
+        if journal.get(sid) in _DONE_STATUSES and not replaced:
+            continue
+        n_err = sum(1 for t in errors.get(sid, ()) if t >= mtime)
+        if n_err >= cfg.max_retries:
+            continue
+        pending.append(fname)
+    return pending
 
 
 @dataclass
@@ -83,11 +182,11 @@ def serve_once(cfg: ServeConfig, state: ServeState, *,
                verbose: bool = True) -> List[Dict]:
     """Drain every pending slide through one encode_stream pipeline.
     Returns the per-slide prediction records written this drain."""
-    from hipt_abmil_atec23_tpu.explain.heatmaps import save_blockmap
-    from hipt_abmil_atec23_tpu.slideio.patching import enumerate_coords
-    from hipt_abmil_atec23_tpu.slideio.reader import open_slide
-    from hipt_abmil_atec23_tpu.slideio.seg import segment_tissue
     from hipt_abmil_atec23_tpu_torch.engine import encode
+    from hipt_abmil_atec23_tpu_torch.explain.heatmaps import save_blockmap
+    from hipt_abmil_atec23_tpu_torch.slideio.patching import enumerate_coords
+    from hipt_abmil_atec23_tpu_torch.slideio.reader import open_slide
+    from hipt_abmil_atec23_tpu_torch.slideio.seg import segment_tissue
 
     os.makedirs(cfg.out_dir, exist_ok=True)
     results_dir = os.path.join(cfg.out_dir, "results")
@@ -134,7 +233,7 @@ def serve_once(cfg: ServeConfig, state: ServeState, *,
 
     store = None
     if cfg.save_features:
-        from hipt_abmil_atec23_tpu.data.bags import FeatureBagStore
+        from hipt_abmil_atec23_tpu_torch.data.bags import FeatureBagStore
         store = FeatureBagStore(os.path.join(cfg.out_dir, "features"))
 
     jsonl = open(os.path.join(cfg.out_dir, "predictions.jsonl"), "a")

@@ -6,7 +6,7 @@ call, and is rebuilt when its source is newer than the library. The
 sources expose plain ``extern "C"`` launchers taking device pointers,
 shapes and the CUDA stream, so nothing links against PyTorch's headers
 and a build takes seconds. This mirrors how ``slideio/native.py`` builds
-the slide reader.
+the slide reader. ``build_all`` runs one nvcc per source side by side.
 
 A failed build raises with nvcc's output; nothing falls back.
 """
@@ -17,6 +17,7 @@ import os
 import shutil
 import subprocess
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
@@ -65,6 +66,13 @@ def build(name: str) -> str:
         raise RuntimeError(f"nvcc failed to build {src}:\n{report}")
     os.replace(tmp, so)  # atomic: a concurrent loader never sees half a file
     return so
+
+
+def build_all(names) -> None:
+    """Build several sources at once, one nvcc process each (a build of one
+    source waits only on its own nvcc)."""
+    with ThreadPoolExecutor(max(1, len(names))) as ex:
+        list(ex.map(build, names))
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -5,6 +5,7 @@ on a machine without jax it runs as
 
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q
 """
+import numpy as np
 import pytest
 import torch
 
@@ -98,3 +99,88 @@ def test_pool_kernel_prefix_length_equals_mask(cuda_device):
         bag, p, mask=torch.arange(5000, device=cuda_device) < 4321)
     for x, y in zip(a, b):
         assert torch.equal(x, y)
+
+
+@pytest.fixture(scope="module")
+def dct_slide():
+    from hipt_abmil_atec23_tpu_torch.slideio.synthetic import (
+        DctMemorySlide, he_like_planes)
+    return DctMemorySlide(*he_like_planes(3, 2048)[1:])
+
+
+@pytest.fixture(scope="module")
+def edge_slide():
+    """Hard edges at quality 92: AC values past int8 (the -128 sentinel and
+    the int16 explicit tier) and dense escape bytes."""
+    from hipt_abmil_atec23_tpu_torch.slideio.synthetic import DctMemorySlide
+    y = np.zeros((512, 512), np.uint8)
+    y[:, 256:] = 255
+    y[::9] = 255
+    c = np.full((256, 256), 128, np.uint8)
+    c[:, 128:] = 20
+    c[::5] = 240
+    return DctMemorySlide(y, c, 255 - c, quality=92)
+
+
+_WIDE = dict(cap_y_pb=62, cap_c_pb=62, cap_ge_y=992, cap_ge_c=992,
+             cap_aesc_y=65536, cap_aesc_c=16384)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fixture,coords,size,caps", [
+    ("dct_slide", [[0, 0], [1024, 1024]], 1024, {}),
+    ("dct_slide", [[8, 24], [1000, 2]], 512, {}),         # offset grid
+    ("dct_slide", [[0, 0], [512, 256]], 256, dict(        # spilling caps
+        cap_y_pb=4, cap_c_pb=2, cap_ge_y=4, cap_ge_c=2, cap_bm_y=2,
+        cap_bm_c=1, cap_aesc_y=65536, cap_aesc_c=16384)),
+    ("edge_slide", [[0, 0], [256, 256]], 256, _WIDE)])    # int16 escapes
+def test_dct_unpack_kernel_matches_plain(cuda_device, fixture, coords, size,
+                                         caps, request):
+    """The unpack kernel equals its plain version bit for bit (integers
+    times the quant table) per component, and the decoded planes through
+    the kernel equal those through the plain version."""
+    from hipt_abmil_atec23_tpu_torch.ops import jpegdct
+    slide = request.getfixturevalue(fixture)
+    r = slide.read_regions_dct(np.array(coords), 0, (size, size), **caps)
+    assert (r.status == 0).all()
+    pack = [torch.from_numpy(a).to(cuda_device) for a in r[:27]] + [
+        torch.from_numpy(slide.qt.astype(np.int32)).to(cuda_device),
+        torch.from_numpy(r.valid).to(cuda_device),
+        torch.from_numpy(r.off).to(cuda_device)]
+    before = jpegdct.dct_unpack.launches
+    for c in range(3):
+        dc8, bmc, bmb, valn, esc8 = pack[9 * c:9 * c + 5]
+        args = (bmc, bmb, valn, esc8, pack[27][c].float().contiguous(),
+                dc8.shape[1] * dc8.shape[2])
+        got = jpegdct.dct_unpack(*args)
+        want = jpegdct.dct_unpack_reference(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+    assert jpegdct.dct_unpack.launches == before + 3
+    with torch.inference_mode():
+        a = jpegdct.dct_regions_to_planes(*pack)
+        b = jpegdct.dct_regions_to_planes(*pack, plain=True)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_dct_unpack_kernel_refuses_what_it_does_not_take(cuda_device,
+                                                         dct_slide):
+    """No quiet fallback: a wrong dtype, a non-contiguous stream or a shape
+    that does not fit the block count raises."""
+    from hipt_abmil_atec23_tpu_torch.ops import jpegdct
+    r = dct_slide.read_regions_dct(np.array([[0, 0]]), 0, (256, 256))
+    bmc, bmb, valn, esc8 = (torch.from_numpy(a).to(cuda_device)
+                            for a in (r.y_bmc, r.y_bmb, r.y_valn, r.y_esc8))
+    q = torch.ones(64, device=cuda_device)
+    with pytest.raises(ValueError):
+        jpegdct.dct_unpack(bmc, bmb, valn, esc8.to(torch.uint8), q, 1024)
+    with pytest.raises(ValueError):
+        jpegdct.dct_unpack(bmc, bmb, valn, esc8, q.double(), 1024)
+    with pytest.raises(ValueError):
+        jpegdct.dct_unpack(bmc, bmb, valn, esc8, q, 1000)
+    strided = torch.cat([bmb, bmb], 1)[:, ::2]
+    assert strided.shape == bmb.shape and not strided.is_contiguous()
+    with pytest.raises(ValueError):
+        jpegdct.dct_unpack(bmc, strided, valn, esc8, q, 1024)

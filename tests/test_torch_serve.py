@@ -4,8 +4,10 @@ weights and checkpoint.
 
 Two synthetic slides: a YCbCr 4:2:0 JPEG one (plane rung) and a DEFLATE one
 (RGB rung). Both packages run a narrow HIPT at f32 on 512 px regions
-(the JAX side through a hand-built Encoder without a DCT entry, so both ride
-the same rungs) and load one reference-layout .pt CLAM_SB checkpoint."""
+(the JAX side through a hand-built Encoder without a DCT entry and the port's
+with its DCT rung off, so both ride the same rungs) and load one
+reference-layout .pt CLAM_SB checkpoint. The DCT rung has its own tests in
+test_torch_jpegdct.py."""
 import dataclasses
 import json
 import os
@@ -75,11 +77,12 @@ def _jax_encoder(params):
 
 def _port_encoder(params):
     model = narrow_port_hipt(torch.float32)
-    return encode.build_encoder(
+    enc = encode.build_encoder(
         EncoderConfig(model_type="HIPT_4K", batch_size=BATCH,
                       dtype="float32"),
         device="cpu", model=model,
         state_dict=hipt_state_dict_from_jax(params))
+    return dataclasses.replace(enc, dct_rung=False)
 
 
 @pytest.fixture(scope="module")
@@ -162,6 +165,31 @@ def test_serve_outputs_and_journal_match_jax(served):
     assert serve.serve_once(tcfg, state, verbose=False) == []
 
 
+def test_serve_saves_bags_the_jax_store_reads(served, tmp_path):
+    """With save_features the port writes each slide's bag in the
+    reference layout: the JAX package's FeatureBagStore reads back
+    features [n_regions, 192] and the coords of the port's blockmap."""
+    from hipt_abmil_atec23_tpu.data.bags import FeatureBagStore
+    from hipt_abmil_atec23_tpu_torch.explain.heatmaps import (
+        load_blockmap as port_load_blockmap)
+    _, _, _, _, tcfg, _, trecs, state = served
+    cfg = dataclasses.replace(tcfg, out_dir=str(tmp_path / "out"),
+                              save_features=True)
+    recs = serve.serve_once(cfg, state, verbose=False)
+    n = {r["slide_id"]: r["n_regions"] for r in trecs}
+    store = FeatureBagStore(os.path.join(cfg.out_dir, "features"))
+    for r in recs:
+        feats, coords = store.load_with_coords(r["slide_id"])
+        assert feats.shape == (n[r["slide_id"]], 192)
+        assert np.isfinite(feats).all()
+        np.testing.assert_array_equal(store.load_features(r["slide_id"]),
+                                      feats)
+        bc, _ = port_load_blockmap(os.path.join(
+            cfg.out_dir, "results", f"{r['slide_id']}_blockmap.h5"))
+        np.testing.assert_array_equal(coords, bc)
+    assert sorted(r["slide_id"] for r in recs) == ["rgb", "ycc"]
+
+
 def test_serve_isolates_a_failing_slide(served, tmp_path, monkeypatch):
     """A stream that dies on one slide falls back to per-slide streams:
     only that slide is journaled 'error', the other is served."""
@@ -182,20 +210,27 @@ def test_serve_isolates_a_failing_slide(served, tmp_path, monkeypatch):
 
 
 def test_port_serve_path_imports_no_jax(served, tmp_path):
-    """A fresh interpreter runs the port's serve_once on the same slides
-    (narrow random HIPT, the same checkpoint) and ends without jax or flax
-    in sys.modules."""
+    """A fresh interpreter imports the port's serve, encode and jpegdct
+    modules and chip_smoke, runs the port's serve_once on the same slides
+    (narrow random HIPT, the same checkpoint; the YCbCr slide rides the DCT
+    rung) and one encode_stream on the DCT rung, and ends with no jax, flax
+    or hipt_abmil_atec23_tpu module in sys.modules."""
     _, slide_dir, ckpt, _, _, _, _, _ = served
     script = textwrap.dedent(f"""
         import dataclasses, json, sys
+        import numpy as np
         import torch
-        from hipt_abmil_atec23_tpu.utils.config import (
-            EncoderConfig, ModelConfig, SegConfig, TileConfig)
-        from hipt_abmil_atec23_tpu_torch.engine.encode import build_encoder
+        import chip_smoke  # noqa: F401
+        from hipt_abmil_atec23_tpu_torch.engine.encode import (
+            build_encoder, encode_stream)
         from hipt_abmil_atec23_tpu_torch.engine.serve import (
             ServeConfig, ServeState, serve_once)
         from hipt_abmil_atec23_tpu_torch.models import vit
         from hipt_abmil_atec23_tpu_torch.models.hipt import make_hipt_encoder
+        from hipt_abmil_atec23_tpu_torch.ops import jpegdct  # noqa: F401
+        from hipt_abmil_atec23_tpu_torch.slideio.reader import open_slide
+        from hipt_abmil_atec23_tpu_torch.utils.config import (
+            EncoderConfig, ModelConfig, SegConfig, TileConfig)
         model = make_hipt_encoder(
             torch.float32,
             dataclasses.replace(vit.VIT_CONFIGS["vit_small"], embed_dim=64,
@@ -212,21 +247,30 @@ def test_port_serve_path_imports_no_jax(served, tmp_path):
             tile=TileConfig(patch_size=512, step_size=512,
                             seg=SegConfig(use_otsu=True, close=4, a_t=1)),
             min_stable_s=0.0)
-        state = ServeState(device=torch.device("cpu"),
-                           encoder=build_encoder(enc, device="cpu",
-                                                 model=model))
-        recs = serve_once(cfg, state, verbose=False)
+        encoder = build_encoder(enc, device="cpu", model=model)
+        recs = serve_once(cfg, ServeState(device=torch.device("cpu"),
+                                          encoder=encoder), verbose=False)
+        stats = {{}}
+        slide = open_slide({str(slide_dir / "ycc.tif")!r})
+        coords = np.array([[0, 0], [512, 512]])
+        feats = dict(encode_stream([("ycc", slide, coords)], encoder,
+                                   region_size=512, stats=stats))
+        slide.close()
         loaded = sorted(m for m in sys.modules
-                        if m.split(".")[0] in ("jax", "jaxlib", "flax"))
+                        if m.split(".")[0] in ("jax", "jaxlib", "flax",
+                                               "hipt_abmil_atec23_tpu"))
         print(json.dumps({{"done": sorted(r["slide_id"] for r in recs),
-                          "jax_modules": loaded}}))
+                          "regions_dct": stats.get("regions_dct", 0),
+                          "shape": list(feats["ycc"].shape),
+                          "modules": loaded}}))
     """)
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     out = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert out == {"done": ["rgb", "ycc"], "jax_modules": []}
+    assert out == {"done": ["rgb", "ycc"], "regions_dct": 2,
+                   "shape": [2, 192], "modules": []}
 
 
 def test_encode_stream_matches_jax_across_batches(served):
