@@ -5,17 +5,20 @@ serving path on an NVIDIA H100 through its hand-written CUDA kernels.
 
 Phases (any failure exits non-zero, and no result line is printed):
   1. device: require CUDA; print the card's name and power limit.
-  2. kernels: build the three CUDA sources from the checkout (one nvcc per
-     source, side by side, sm_90a) and hold each kernel against its plain
-     PyTorch version on the card, at the main path's shapes, with the
-     stated tolerance; time both, the bound of the same work, and the one
-     PyTorch call that computes it where there is one.
+  2. kernels: build the five CUDA sources from the checkout (one nvcc per
+     source, side by side, sm_90a) and hold each of the six kernels
+     against its plain PyTorch version on the card, at the main path's
+     shapes, with the stated tolerance; time both, the bound of the same
+     work, and the one PyTorch call that computes it where there is one.
+     flash_attention is driven through attention() at a long N, where the
+     dispatcher takes its flash branch (counts zeroed before, read after).
   3. plane slice: two in-memory 8192^2 slides (seeded H&E-like texture served
      as YCbCr 4:2:0 planes) through build_encoder (full-width HIPT_4K,
-     bf16, seeded random weights, batch 2) -> encode_stream -> CLAM_SB
-     hipt_smaller through serve's _mil_bucketed. Launch counts are zeroed
-     right before this run and must be non-zero after it. The features are
-     held against a second pass of the same weights on the plain versions.
+     bf16, seeded random weights, every block the fused block kernel,
+     batch 2) -> encode_stream -> CLAM_SB hipt_smaller through serve's
+     _mil_bucketed. Launch counts are zeroed right before this run and must
+     be non-zero after it. The features are held against a second pass of
+     the same weights on the plain versions.
   4. DCT slice: two in-memory 8192^2 slides stored as JPEG quality-80
      coefficients (slideio/synthetic.DctMemorySlide) through the same
      encoder -> encode_stream(adaptive_rungs=False) on the sparse-DCT rung
@@ -23,12 +26,20 @@ Phases (any failure exits non-zero, and no result line is printed):
      gated_pool each non-zero after; features held against the plain pass;
      one batch's decoded planes held against the slide's own decode; the
      per-rung seed costs measured; one adaptive stream printed.
-  5. serve: serve_once over two synthetic JPEG YCbCr 4:2:0 slides of 8192^2
+  5. per-op slice: the plane slides of phase 3 through the per-op
+     configuration (make_hipt_encoder(use_flash=True, use_fused_mlp=True),
+     the same weights) via build_encoder(model=...) -> encode_stream ->
+     CLAM_SB. Counts zeroed before; fused_attention, fused_mlp and
+     gated_pool non-zero and fused_block zero after. Features held against
+     the plain pass of the same configuration and against phase 3's
+     fused-block features; ms per region of both configurations printed.
+  6. serve: serve_once over two synthetic JPEG YCbCr 4:2:0 slides of 8192^2
      on disk (skipped, with a line saying what is missing, where cv2, h5py
      or the native reader's build dependencies are absent).
-  6. profile (only with --profile PATH): where one warm encode_stream's
-     time goes, stage by stage, and a torch.profiler kernel table, written
-     to PATH.
+  7. profile (only with --profile PATH): where one warm encode_stream's
+     time goes, stage by stage, and torch.profiler kernel tables of the
+     fused-block and the per-op configurations, written to PATH and
+     PATH.per_op.
 
     python3 chip_smoke.py --profile chiprun_out/profile.txt
 
@@ -55,6 +66,8 @@ from hipt_abmil_atec23_tpu_torch.engine.encode import (
 from hipt_abmil_atec23_tpu_torch.models.abmil import build_mil_model
 from hipt_abmil_atec23_tpu_torch.models.hipt import make_hipt_encoder
 from hipt_abmil_atec23_tpu_torch.models.vit import Block
+from hipt_abmil_atec23_tpu_torch.ops import flash_attention as fa
+from hipt_abmil_atec23_tpu_torch.ops import fused_mlp as fm
 from hipt_abmil_atec23_tpu_torch.ops import gated_attention_pool as gap
 from hipt_abmil_atec23_tpu_torch.ops import jpegdct
 from hipt_abmil_atec23_tpu_torch.ops.fused_block import (
@@ -66,10 +79,14 @@ from hipt_abmil_atec23_tpu_torch.utils.config import (
     EncoderConfig, ModelConfig, SegConfig, TileConfig)
 
 BLOCK_TOL = (3e-2, 5e-2)   # |kernel - plain| <= atol + rtol |plain| (bf16)
+MLP_TOL = (3e-2, 5e-2)     # bf16 out; the kernel's products round to bf16
+ATTN_TOL = (5e-2, 2e-2)    # bf16 out: atol x rms(plain), rtol x |plain|
+Q_SCALE = 3.0              # q scale: logits of std 3, a peaked softmax
 POOL_TOL = 1e-4            # f32 logits and scores
 REGION = 4096
 SLIDE = 8192
-KERNELS = ("fused_block", "gated_pool", "dct_unpack")
+SOURCES = ("fused_block", "gated_pool", "dct_unpack", "fused_mlp",
+           "flash_attention")
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit) for bounds
 HBM_BYTES_S = 3.35e12
@@ -297,21 +314,214 @@ def _kernel_unpack(dev, slide) -> dict:
                   F32_FLOP_S, None)
 
 
+def _check(name, what, got, want, tol) -> float:
+    """Hold a kernel's bf16 output against its plain version: |got - want|
+    <= atol + rtol |want| and finite; returns the max abs error."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    ok = bool((err <= tol[0] + tol[1] * want.abs()).all()
+              and torch.isfinite(got).all())
+    log(f"{name} {what}: max_abs_err {err.max().item():.6g} within "
+        f"{tol[0]:.3g} + {tol[1]:.3g} |plain| {ok}")
+    if not ok:
+        raise SystemExit(f"{name} disagrees with its plain version at {what}")
+    return err.max().item()
+
+
+def _mlp_inputs(rows, d, h, g, dev):
+    bf16 = torch.bfloat16
+    x = torch.randn(rows, d, generator=g).to(dev, bf16)
+    w1 = (torch.randn(d, h, generator=g) * d ** -0.5).to(dev, bf16)
+    w2 = (torch.randn(h, d, generator=g) * h ** -0.5).to(dev, bf16)
+    b1 = (0.1 * torch.randn(h, generator=g)).to(dev)
+    b2 = (0.1 * torch.randn(d, generator=g)).to(dev)
+    gamma = (1 + 0.1 * torch.randn(d, generator=g)).to(dev)
+    beta = (0.1 * torch.randn(d, generator=g)).to(dev)
+    return x, gamma, beta, w1, b1, w2, b2
+
+
+def _kernel_mlp(dev, g) -> dict:
+    """fused_mlp in both modes against its plain version: ViT-256's
+    per-block call at the slice's batch (512 tiles x 257 tokens, timed),
+    ViT-4K's (2 x 257 rows, D 192), ragged and narrow shapes."""
+    worst, timed = 0.0, None
+    for rows, d, h in [(131584, 384, 1536), (514, 192, 768), (131, 64, 256)]:
+        args = _mlp_inputs(rows, d, h, g, dev)
+        for with_ln in (True, False):
+            with torch.inference_mode():
+                if with_ln:
+                    fn = lambda: fm.fused_ln_mlp_residual(*args)
+                else:
+                    fn = lambda: fm.fused_mlp(args[0], *args[3:])
+                got = fn()
+                want = fm.fused_mlp_reference(*args, with_ln=with_ln,
+                                              residual=with_ln)
+                torch.cuda.synchronize()
+                what = (f"[{rows},{d}] H {h} "
+                        f"{'LN+residual' if with_ln else 'plain MLP'}")
+                worst = max(worst, _check("fused_mlp", what, got, want,
+                                          MLP_TOL))
+                if timed is None:
+                    ms = gpu_timer(fn)
+                    pms = gpu_timer(lambda: fm.fused_mlp_reference(
+                        *args, with_ln=True, residual=True), iters=3)
+                    log(f"fused_mlp {what}: kernel {ms:.4f} ms, plain "
+                        f"{pms:.4f} ms")
+                    # x in, out; weights and vectors once
+                    nbytes = (2 * rows * d * 2 + 2 * d * h * 2
+                              + (h + 3 * d) * 4)
+                    timed = (ms, pms, f"[{rows},{d}] bf16, H {h}, LN + "
+                             "residual", nbytes, 4.0 * rows * d * h)
+        del args
+    ms, pms, shape, nbytes, flops = timed
+    return record("fused_mlp",
+                  "hipt_abmil_atec23_tpu_torch/kernels/csrc/fused_mlp.cu",
+                  "hipt_abmil_atec23_tpu/ops/fused_mlp.py:44", worst, ms,
+                  pms, shape, nbytes, flops, BF16_FLOP_S, None)
+
+
+def _qkv(bh, n, d, g, dev):
+    """Unit-normal k and v and a q at Q_SCALE: with unit logits the output
+    at long N is a near-uniform average of ~6e-3 RMS that hides a dropped
+    key tile."""
+    q, k, v = (torch.randn(bh, n, d, generator=g) for _ in range(3))
+    return [t.to(dev, torch.bfloat16) for t in (q * Q_SCALE, k, v)]
+
+
+def _attn_check(name, what, got, want) -> float:
+    """Attention against its plain version with the atol scaled to the
+    plain output: |got - want| <= 5e-2 rms(want) + 2e-2 |want|. The
+    output's spread depends on N and the logits, so a fixed atol would be
+    loose at long N."""
+    rms = want.float().square().mean().sqrt().item()
+    return _check(name, what, got, want, (ATTN_TOL[0] * rms, ATTN_TOL[1]))
+
+
+def _sdpa_ms(q, k, v, n_valid) -> float:
+    """One scaled_dot_product_attention call with a key mask: the
+    yardstick for both attention kernels, never called by the port."""
+    import torch.nn.functional as F
+    mask = torch.arange(q.shape[1], device=q.device)[None, :] < n_valid
+    with torch.inference_mode():
+        ms = gpu_timer(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask))
+        # without a mask SDPA may take its flash backend: logged beside
+        unmasked = gpu_timer(lambda: F.scaled_dot_product_attention(
+            q[None], k[None], v[None]))
+    log(f"scaled_dot_product_attention [{q.shape[0]},{q.shape[1]},"
+        f"{q.shape[2]}]: with key mask {ms:.4f} ms, unmasked (all keys) "
+        f"{unmasked:.4f} ms")
+    return ms
+
+
+def _attn_bytes_flops(bh, n, n_valid, d):
+    """q, k, v read and o written once in bf16; QK^T and PV over the
+    valid keys."""
+    return 4 * bh * n * d * 2, 4.0 * bh * n * n_valid * d
+
+
+def _kernel_attention(dev, g) -> dict:
+    """fused_attention against its plain version: ViT-256's per-block call
+    at the slice's batch (512 tiles x 6 heads, N 257, d 64, timed),
+    ViT-4K's (2 x 6 heads, d 32), a masked ragged shape and, through
+    attention(), a medium N the dispatcher sends to the query-tiled
+    branch."""
+    worst, timed = 0.0, None
+    for bh, n, nv, d in [(3072, 257, 257, 64), (12, 257, 257, 32),
+                         (4, 100, 37, 64), (8, 1500, 1400, 64)]:
+        q, k, v = _qkv(bh, n, d, g, dev)
+        with torch.inference_mode():
+            got = fa.attention(q, k, v, nv)
+            want = fa.attention(q, k, v, nv, plain=True)
+            torch.cuda.synchronize()
+        worst = max(worst, _attn_check("fused_attention", f"[{bh},{n},{d}] "
+                                       f"valid {nv}", got, want))
+        if timed is None:
+            with torch.inference_mode():
+                ms = gpu_timer(lambda: fa.fused_attention(q, k, v, nv))
+                pms = gpu_timer(lambda: fa.fused_attention_reference(
+                    q, k, v, nv), iters=3)
+            lib = _sdpa_ms(q, k, v, nv)
+            log(f"fused_attention [{bh},{n},{d}]: kernel {ms:.4f} ms, plain "
+                f"{pms:.4f} ms, scaled_dot_product_attention {lib:.4f} ms")
+            timed = (ms, pms, f"[{bh},{n},{d}] bf16, valid {nv}",
+                     *_attn_bytes_flops(bh, n, nv, d), lib)
+        del q, k, v, got, want
+    ms, pms, shape, nbytes, flops, lib = timed
+    return record("fused_attention",
+                  "hipt_abmil_atec23_tpu_torch/kernels/csrc/flash_attention.cu",
+                  "hipt_abmil_atec23_tpu/ops/flash_attention.py:50", worst,
+                  ms, pms, shape, nbytes, flops, BF16_FLOP_S, lib)
+
+
+def _kernel_flash(dev, g):
+    """flash_attention against its plain version: direct calls at masked
+    and head-size-32 shapes, then attention() at [1, 65536, 64] bf16, past
+    12 MiB of K/V, where the dispatcher takes its flash branch. That call
+    is the kernel's path: counts are zeroed before it and read after.
+    Returns the record and that path's counts."""
+    worst = 0.0
+    for bh, n, nv, d in [(2, 768, 700, 64), (3, 300, 300, 32)]:
+        q, k, v = _qkv(bh, n, d, g, dev)
+        with torch.inference_mode():
+            got = fa.flash_attention(q, k, v, nv)
+            want = fa.flash_attention_reference(q, k, v, nv)
+            torch.cuda.synchronize()
+        worst = max(worst, _attn_check("flash_attention", f"[{bh},{n},{d}] "
+                                       f"valid {nv}", got, want))
+    bh, n, d = 1, 65536, 64
+    if fa.attention_branch(n, d, 2) != "flash":
+        raise SystemExit(f"attention() would not take its flash branch at "
+                         f"[{bh},{n},{d}] bf16")
+    q, k, v = _qkv(bh, n, d, g, dev)
+    zero_counts()
+    with torch.inference_mode():
+        got = fa.attention(q, k, v)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    log(f"attention() at [{bh},{n},{d}] bf16 launches: {counts}")
+    if counts["flash_attention"] == 0:
+        raise SystemExit("attention() at long N never launched "
+                         "flash_attention")
+    with torch.inference_mode():
+        want = fa.flash_attention_reference(q, k, v)
+        torch.cuda.synchronize()
+        worst = max(worst, _attn_check("flash_attention", f"[{bh},{n},{d}] "
+                                       "via attention()", got, want))
+        ms = gpu_timer(lambda: fa.flash_attention(q, k, v), iters=5)
+        pms = gpu_timer(lambda: fa.flash_attention_reference(q, k, v),
+                        iters=2)
+    lib = _sdpa_ms(q, k, v, n)
+    log(f"flash_attention [{bh},{n},{d}]: kernel {ms:.4f} ms, plain "
+        f"{pms:.4f} ms, scaled_dot_product_attention {lib:.4f} ms")
+    rec = record("flash_attention",
+                 "hipt_abmil_atec23_tpu_torch/kernels/csrc/flash_attention.cu",
+                 "hipt_abmil_atec23_tpu/ops/flash_attention.py:128", worst,
+                 ms, pms, f"[{bh},{n},{d}] bf16, valid {n}",
+                 *_attn_bytes_flops(bh, n, n, d), BF16_FLOP_S, lib)
+    return rec, counts
+
+
 def phase_kernels(dev, dct_slide) -> dict:
-    """Each kernel against its plain version; returns the JSON records."""
+    """Each kernel against its plain version: the JSON records, and the
+    counts of attention() at long N, the path that owns flash_attention."""
     from hipt_abmil_atec23_tpu_torch.kernels import build
     t0 = time.perf_counter()
-    build.build_all(KERNELS)
-    for name in KERNELS:
+    build.build_all(SOURCES)
+    for name in SOURCES:
         build.load(name)
     log(f"kernels built in {time.perf_counter() - t0:.1f} s "
         f"({build.BUILD_DIR})")
     g = torch.Generator().manual_seed(0)
     records = {"fused_block": _kernel_block(dev, g),
                "gated_pool": _kernel_pool(dev, g),
-               "dct_unpack": _kernel_unpack(dev, dct_slide)}
+               "dct_unpack": _kernel_unpack(dev, dct_slide),
+               "fused_mlp": _kernel_mlp(dev, g),
+               "fused_attention": _kernel_attention(dev, g)}
+    records["flash_attention"], launches = _kernel_flash(dev, g)
     torch.cuda.empty_cache()
-    return records
+    return {"records": records, "launches": launches,
+            "owned": {"flash_attention": launches["flash_attention"]}}
 
 
 # ------------------------------------------------------------------ phase 3
@@ -376,31 +586,45 @@ def score(model, feats, dev):
     return out, ref_logits
 
 
+COUNTERS = {"fused_block": fused_vit_block,
+            "gated_pool": gap.gated_attention_pool,
+            "dct_unpack": jpegdct.dct_unpack,
+            "fused_mlp": fm.fused_mlp,
+            "fused_attention": fa.fused_attention,
+            "flash_attention": fa.flash_attention}
+
+
 def zero_counts():
-    fused_vit_block.launches = 0
-    gap.gated_attention_pool.launches = 0
-    jpegdct.dct_unpack.launches = 0
+    for fn in COUNTERS.values():
+        fn.launches = 0
 
 
 def read_counts() -> dict:
-    return {"fused_block": fused_vit_block.launches,
-            "gated_pool": gap.gated_attention_pool.launches,
-            "dct_unpack": jpegdct.dct_unpack.launches}
+    return {name: fn.launches for name, fn in COUNTERS.items()}
 
 
-def check_features(feats, plain_feats, outs, n_regions, feat_dim):
-    """Kernel-path features against the plain pass (cosine >= 0.999, rel
-    L2 <= 2e-2 per region) and the pooled scores against the plain pool."""
+def feature_agreement(feats, other):
+    """(min cosine, max relative L2) per region between two feature sets
+    keyed by slide."""
     worst_cos, worst_rel = 1.0, 0.0
     for sid, f in feats.items():
-        pf = plain_feats[sid]
-        if f.shape != (n_regions, feat_dim) or not np.isfinite(f).all():
-            raise SystemExit(f"{sid}: bad features {f.shape}")
+        pf = other[sid]
         cos = (f * pf).sum(1) / (np.linalg.norm(f, axis=1)
                                  * np.linalg.norm(pf, axis=1))
         rel = np.linalg.norm(f - pf, axis=1) / np.linalg.norm(pf, axis=1)
         worst_cos = min(worst_cos, float(cos.min()))
         worst_rel = max(worst_rel, float(rel.max()))
+    return worst_cos, worst_rel
+
+
+def check_features(feats, plain_feats, outs, n_regions, feat_dim):
+    """Kernel-path features against the plain pass (cosine >= 0.999, rel
+    L2 <= 2e-2 per region) and the pooled scores against the plain pool."""
+    for sid, f in feats.items():
+        if f.shape != (n_regions, feat_dim) or not np.isfinite(f).all():
+            raise SystemExit(f"{sid}: bad features {f.shape}")
+    worst_cos, worst_rel = feature_agreement(feats, plain_feats)
+    for sid in feats:
         out, ref_logits = outs[sid]
         prob = out.y_prob[0].float().cpu().numpy()
         if not (np.isfinite(prob).all() and abs(prob.sum() - 1) < 1e-5):
@@ -425,12 +649,9 @@ def phase_slice(dev, planes, *, slide=SLIDE, region=REGION, batch=2,
         kw = dict(vit256_cfg=vit256_cfg, vit4k_cfg=vit4k_cfg)
     dtype = torch.bfloat16
     kernel_model = make_hipt_encoder(
-        dtype, generator=torch.Generator().manual_seed(0), **kw)
-    plain_model = make_hipt_encoder(dtype, **kw)
-    plain_model.load_state_dict(kernel_model.state_dict())
-    for m in plain_model.modules():
-        if isinstance(m, Block):
-            m.plain = True
+        dtype, use_fused_block=True,
+        generator=torch.Generator().manual_seed(0), **kw)
+    plain_model = _plain_copy(kernel_model, kw, False, False, True)
     cfg = EncoderConfig(model_type="HIPT_4K", batch_size=batch,
                         dtype="bfloat16")
     enc = build_encoder(cfg, device=dev, model=kernel_model)
@@ -463,9 +684,69 @@ def phase_slice(dev, planes, *, slide=SLIDE, region=REGION, batch=2,
     for name in ("fused_block", "gated_pool"):
         if launches[name] == 0:
             raise SystemExit(f"the plane path never launched {name}")
-    return {"launches": launches, "ms_region": ms_k,
+    return {"launches": launches, "owned": {}, "ms_region": ms_k,
             "plain_ms_region": ms_p, "encoder": enc,
-            "plain_encoder": plain_enc, "clam": clam}
+            "plain_encoder": plain_enc, "clam": clam, "feats": feats,
+            "jobs": jobs, "widths": kw}
+
+
+def _plain_copy(model, widths, *flags):
+    """A model of the same configuration and weights whose blocks run every
+    kernel op's plain version."""
+    plain = make_hipt_encoder(torch.bfloat16, *flags, **widths)
+    plain.load_state_dict(model.state_dict())
+    for m in plain.modules():
+        if isinstance(m, Block):
+            m.plain = True
+    return plain
+
+
+def phase_per_op_slice(dev, res, *, region=REGION, batch=2) -> dict:
+    """The per-op configuration (use_flash + use_fused_mlp) on phase 3's
+    plane slides and weights, through build_encoder(model=...) ->
+    encode_stream -> CLAM_SB; then its plain pass."""
+    jobs, clam, widths = res["jobs"], res["clam"], res["widths"]
+    flags = (True, True)  # use_flash, use_fused_mlp
+    model = make_hipt_encoder(torch.bfloat16, *flags, **widths)
+    model.load_state_dict(res["encoder"].model.state_dict())
+    cfg = EncoderConfig(model_type="HIPT_4K", batch_size=batch,
+                        dtype="bfloat16")
+    enc = build_encoder(cfg, device=dev, model=model)
+    plain_enc = build_encoder(cfg, device=dev,
+                              model=_plain_copy(model, widths, *flags))
+    n_coords = len(jobs[0][2])
+
+    encode_slides(jobs[:1], enc, region)  # warm-up (cuBLAS, allocator)
+    zero_counts()
+    feats, wall = encode_slides(jobs, enc, region)
+    outs = {sid: score(clam, f, dev) for sid, f in feats.items()}
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    launches = read_counts()
+    n_regions = sum(len(f) for f in feats.values())
+    log(f"per-op path launches: {launches}")
+
+    plain_feats, plain_wall = encode_slides(jobs, plain_enc, region)
+    check_features(feats, plain_feats, outs, n_coords, enc.feat_dim)
+    cos, rel = feature_agreement(feats, res["feats"])
+    log(f"features per-op vs fused-block configuration (same weights): min "
+        f"cosine {cos:.6f} (>= 0.99), max rel L2 {rel:.3g}")
+    if cos < 0.99:
+        raise SystemExit("per-op features disagree with the fused-block "
+                         "configuration")
+    ms_k = wall * 1e3 / n_regions
+    ms_p = plain_wall * 1e3 / n_regions
+    log(f"plane rung, ms per {region}^2 region (decode + H2D + encode, "
+        f"batch {batch}): per-op kernel path {ms_k:.2f}, per-op plain path "
+        f"{ms_p:.2f}, fused-block kernel path {res['ms_region']:.2f}")
+    for name in ("fused_attention", "fused_mlp", "gated_pool"):
+        if launches[name] == 0:
+            raise SystemExit(f"the per-op path never launched {name}")
+    if launches["fused_block"]:
+        raise SystemExit("the per-op path launched fused_block")
+    owned = {n: launches[n] for n in ("fused_attention", "fused_mlp")}
+    return {"launches": launches, "owned": owned, "ms_region": ms_k,
+            "plain_ms_region": ms_p, "encoder": enc}
 
 
 # ------------------------------------------------------------------ phase 4
@@ -557,10 +838,12 @@ def phase_dct_slice(dev, res, slides, *, region=REGION) -> dict:
                for t in ("host_ms_mpx", "dev_ms_mpx")}
     log(f"adaptive stream calibration: host_ms_mpx "
         f"{rounded['host_ms_mpx']} dev_ms_mpx {rounded['dev_ms_mpx']}")
-    for name, n in launches.items():
-        if n == 0:
+    owned = {n: launches[n] for n in ("dct_unpack", "fused_block",
+                                      "gated_pool")}
+    for name, count in owned.items():
+        if count == 0:
             raise SystemExit(f"the DCT path never launched {name}")
-    return {"launches": launches, "ms_region": ms_k,
+    return {"launches": launches, "owned": owned, "ms_region": ms_k,
             "plain_ms_region": ms_p}
 
 
@@ -650,15 +933,49 @@ def _profile_dct_decode(dev, dct_slide, region) -> None:
             f"ms/region")
 
 
-def phase_profile(dev, encoder, planes, dct_slide, path, *, slide=SLIDE,
-                  region=REGION) -> None:
+def _profile_stream(jobs, encoder, region, n, path, label) -> None:
+    """torch.profiler over one warm stream: the device's busy share and
+    the kernel table by name, written to ``path``."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, wall = encode_slides(jobs, encoder, region)
+    dev_events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not dev_events:
+        raise SystemExit("torch.profiler recorded no device activity")
+    busy = _busy_us((e.time_range.start, e.time_range.end)
+                    for e in dev_events) / 1e3
+    by_name = {}
+    for e in dev_events:
+        t, c = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (t + e.time_range.elapsed_us() / 1e3, c + 1)
+    total = sum(t for t, _ in by_name.values())
+    head = (f"{label}: profiled wall {wall * 1e3:.1f} ms ({n} regions), "
+            f"device busy {busy:.1f} ms, busy share "
+            f"{busy / (wall * 1e3):.3f}, device time summed over launches "
+            f"{total:.1f} ms")
+    rows = [f"{t:9.2f} ms {100 * t / total:5.1f}%  x {c:4d}  {name}"
+            for name, (t, c) in sorted(by_name.items(),
+                                        key=lambda kv: -kv[1][0])]
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "w") as f:
+        f.write("\n".join([head, *rows]) + "\n")
+    log(f"profile: {head}")
+    for r in rows[:8]:
+        log(f"profile: {r[:140]}")
+    log(f"profile: kernel table in {path}")
+
+
+def phase_profile(dev, encoder, per_op_encoder, planes, dct_slide, path, *,
+                  slide=SLIDE, region=REGION) -> None:
     """Where one slide's warm encode_stream time goes: the stream's wall,
     its stages timed apart (host plane read, H2D of the pinned planes,
     YCbCr -> RGB + normalize, the encoder on planes and on RGB already on
     the card, the DCT rung's decode stages), and the device's busy share
     and kernel table from torch.profiler over one more stream, the table
-    written to ``path``."""
-    from torch.profiler import ProfilerActivity, profile
+    written to ``path``; the same stream and encoder stages for the per-op
+    configuration, its table written to ``path``.per_op."""
     from hipt_abmil_atec23_tpu_torch.ops.yuv import yuv_planes_to_rgb
     s = PlaneSlide(*planes)
     coords = grid_coords(slide, region)
@@ -684,46 +1001,41 @@ def phase_profile(dev, encoder, planes, dct_slide, path, *, slide=SLIDE,
         "encoder, planes on the card": gpu_timer(
             lambda: encoder.apply_yuv(*on_dev), iters=3),
         "encoder, RGB on the card": gpu_timer(
-            lambda: encoder.apply(rgb), iters=3)}
+            lambda: encoder.apply(rgb), iters=3),
+        "per-op encoder, planes on the card": gpu_timer(
+            lambda: per_op_encoder.apply_yuv(*on_dev), iters=3)}
     mb = sum(t.numel() for t in host) / k / 1e6
     for name, ms in stages.items():
         log(f"profile: {name} ms/region {ms / k:.2f}"
             + (f" ({mb:.1f} MB/region)" if name.startswith("H2D") else ""))
     _profile_dct_decode(dev, dct_slide, region)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        _, wall = encode_slides(jobs, encoder, region)
-    dev_events = [e for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not dev_events:
-        raise SystemExit("torch.profiler recorded no device activity")
-    busy = _busy_us((e.time_range.start, e.time_range.end)
-                    for e in dev_events) / 1e3
-    by_name = {}
-    for e in dev_events:
-        t, c = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (t + e.time_range.elapsed_us() / 1e3, c + 1)
-    total = sum(t for t, _ in by_name.values())
-    head = (f"profiled wall {wall * 1e3:.1f} ms ({n} regions), device busy "
-            f"{busy:.1f} ms, busy share {busy / (wall * 1e3):.3f}, "
-            f"device time summed over launches {total:.1f} ms")
-    rows = [f"{t:9.2f} ms {100 * t / total:5.1f}%  x {c:4d}  {name}"
-            for name, (t, c) in sorted(by_name.items(),
-                                        key=lambda kv: -kv[1][0])]
-    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    with open(path, "w") as f:
-        f.write("\n".join([head, *rows]) + "\n")
-    log(f"profile: {head}")
-    for r in rows[:8]:
-        log(f"profile: {r[:140]}")
-    log(f"profile: kernel table in {path}")
+    _profile_stream(jobs, encoder, region, n, path, "fused-block")
+    for _ in range(2):
+        _, wall = encode_slides(jobs, per_op_encoder, region)
+        log(f"profile: per-op stream wall ms/region {wall * 1e3 / n:.2f}")
+    _profile_stream(jobs, per_op_encoder, region, n, path + ".per_op",
+                    "per-op")
+
+
+def set_launches(records, paths) -> None:
+    """Each record's launches from the run of the path that owns its kernel
+    (``paths``: name -> a phase's result, whose "owned" holds the counts
+    of its kernels), and every path's count beside them."""
+    owned = {}
+    for r in paths.values():
+        owned.update(r["owned"])
+    for name, rec in records.items():
+        rec["launches"] = owned[name]
+        rec["launches_by_path"] = {p: r["launches"][name]
+                                   for p, r in paths.items()}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", metavar="PATH",
-                    help="also profile one slide's encode_stream (phase 6) "
-                         "and write the kernel table to PATH")
+                    help="also profile one slide's encode_stream (phase 7) "
+                         "and write the kernel tables to PATH and "
+                         "PATH.per_op")
     args = ap.parse_args()
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in f32
     torch.backends.cudnn.allow_tf32 = False
@@ -734,17 +1046,17 @@ def main() -> int:
     dct_slides = [DctMemorySlide(*p[1:]) for p in planes]
     log(f"fixtures: {len(planes)} x {SLIDE}^2 texture, planes and JPEG "
         f"coefficients in {time.perf_counter() - t0:.1f} s")
-    records = phase_kernels(dev, dct_slides[0])
+    kres = phase_kernels(dev, dct_slides[0])
     res = phase_slice(dev, planes)
     dres = phase_dct_slice(dev, res, dct_slides)
+    pres = phase_per_op_slice(dev, res)
     phase_serve(dev, res["encoder"], res["clam"])
     if args.profile:
-        phase_profile(dev, res["encoder"], planes[0], dct_slides[0],
-                      args.profile)
-    for name, rec in records.items():
-        rec["launches"] = dres["launches"][name]
-        rec["launches_by_path"] = {"plane": res["launches"][name],
-                                   "dct": dres["launches"][name]}
+        phase_profile(dev, res["encoder"], pres["encoder"], planes[0],
+                      dct_slides[0], args.profile)
+    records = kres["records"]
+    set_launches(records, {"attention_long_n": kres, "plane": res,
+                           "dct": dres, "per_op": pres})
     log(f"card: {smi}")
     log(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {

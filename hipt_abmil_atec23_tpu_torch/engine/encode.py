@@ -169,8 +169,10 @@ def build_encoder(cfg: EncoderConfig, *, device, model: nn.Module = None,
                   state_dict=None, seed: int = 0) -> Encoder:
     """HIPT_4K encoder (cls4k features) on ``device``.
 
-    ``model``: a prebuilt models.hipt.HIPT4K (tests pass narrow ones);
-    otherwise the full-width vit_small + vit4k_xs at ``cfg.dtype``, with
+    ``model``: a prebuilt models.hipt.HIPT4K (tests pass narrow ones, and
+    the per-op kernel configuration enters here); otherwise the full-width
+    vit_small + vit4k_xs at ``cfg.dtype`` with every block as the fused
+    block kernel, as the JAX package builds it on its accelerator, with
     seeded random weights unless ``state_dict`` or the DINO checkpoints in
     ``cfg`` (vit256_ckpt, vit4k_ckpt) are given."""
     from hipt_abmil_atec23_tpu_torch.models.convert import (
@@ -185,7 +187,8 @@ def build_encoder(cfg: EncoderConfig, *, device, model: nn.Module = None,
     if model is None:
         dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
         model = make_hipt_encoder(
-            dtype, generator=torch.Generator().manual_seed(seed))
+            dtype, use_fused_block=True,
+            generator=torch.Generator().manual_seed(seed))
         if state_dict is None and cfg.vit256_ckpt and cfg.vit4k_ckpt:
             load_dino_(model, load_torch_state_dict(cfg.vit256_ckpt),
                        load_torch_state_dict(cfg.vit4k_ckpt))

@@ -49,16 +49,23 @@ class HIPT4K(nn.Module):
 
 
 def make_hipt_encoder(dtype: torch.dtype = torch.bfloat16,
+                      use_flash: bool = False, use_fused_mlp: bool = False,
+                      use_fused_block: bool = False, *,
                       vit256_cfg: ViTConfig = VIT_CONFIGS["vit_small"],
-                      vit4k_cfg: ViT4KConfig = ViT4KConfig(), *,
+                      vit4k_cfg: ViT4KConfig = ViT4KConfig(),
                       generator: Optional[torch.Generator] = None
                       ) -> HIPT4K:
-    """HIPT4K at the given compute dtype and widths (defaults: vit_small
-    and vit4k_xs, the reference's HIPT_4K). With a generator the weights
-    are seeded random draws in DINO's init scheme; otherwise they are
-    zeros until a state dict is loaded."""
-    model = HIPT4K(dataclasses.replace(vit256_cfg, dtype=dtype),
-                   dataclasses.replace(vit4k_cfg, dtype=dtype))
+    """HIPT4K at the given compute dtype, block configuration and widths
+    (defaults: vit_small and vit4k_xs, the reference's HIPT_4K), as the JAX
+    package's make_hipt_encoder: ``use_fused_block`` runs each block as the
+    fused block kernel; ``use_flash`` / ``use_fused_mlp`` select the per-op
+    attention and LN + MLP kernels. With a generator the weights are seeded
+    random draws in DINO's init scheme; otherwise they are zeros until a
+    state dict is loaded. Every configuration has the same parameters."""
+    flags = dict(dtype=dtype, use_flash=use_flash,
+                 use_fused_mlp=use_fused_mlp, use_fused_block=use_fused_block)
+    model = HIPT4K(dataclasses.replace(vit256_cfg, **flags),
+                   dataclasses.replace(vit4k_cfg, **flags))
     if generator is not None:
         init_dino_(model, generator)
     return model

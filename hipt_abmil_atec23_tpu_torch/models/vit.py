@@ -1,12 +1,24 @@
 """DINO Vision Transformers: ViT-256 (patch encoder) and ViT-4K (region
 encoder), forward only.
 
-Counterpart of hipt_abmil_atec23_tpu/models/vit.py, on the path it takes
-with ``use_fused_block``: tokens pad once per network (257 -> 264) and
-``n_valid`` threads into every block, so each block is one call of
-ops/fused_block.py (CUDA kernels on a CUDA tensor, the plain version on a
-CPU tensor); the residual stream stays in the compute dtype between blocks;
-the final LayerNorm reads the unpadded CLS token in f32.
+Counterpart of hipt_abmil_atec23_tpu/models/vit.py, with its three block
+configurations (the JAX defaults: all off):
+
+- ``use_fused_block``: tokens pad once per network (257 -> 264) and
+  ``n_valid`` threads into every block, so each block is one call of
+  ops/fused_block.py; the residual stream stays in the compute dtype.
+- per-op (otherwise), on the 257 unpadded tokens: LayerNorm (f32 out) ->
+  ``qkv`` Dense -> attention -> ``proj`` Dense + residual -> the MLP half.
+  Dense layers compute in ``dtype`` and add their bias in ``dtype``, as
+  flax ``Dense(dtype=...)`` does. Attention is the XLA-path einsum chain,
+  or with ``use_flash`` ops/flash_attention.py ``attention``; the MLP half
+  is LN + Dense/GELU/Dense + residual, or with ``use_fused_mlp`` one
+  ops/fused_mlp.py ``fused_ln_mlp_residual`` call. Block 0 reads the f32
+  tokens unrounded; the residual stream follows torch's promotion, which
+  is JAX's here (f32 + bf16 -> f32, bf16 + bf16 -> bf16).
+
+Kernel ops run their CUDA kernels on a CUDA tensor and their plain versions
+on a CPU tensor. The final LayerNorm reads the unpadded CLS token in f32.
 
 Parameters keep the DINO checkpoint layout (``patch_embed.proj``,
 ``cls_token``, ``pos_embed``, ``blocks.{i}.norm1`` / ``.attn.qkv`` /
@@ -25,8 +37,11 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from hipt_abmil_atec23_tpu_torch.ops.flash_attention import attention
 from hipt_abmil_atec23_tpu_torch.ops.fused_block import (
     fused_vit_block, fused_vit_block_reference)
+from hipt_abmil_atec23_tpu_torch.ops.fused_mlp import (
+    fused_ln_mlp_residual, fused_mlp, fused_mlp_reference, mlp_weights)
 from hipt_abmil_atec23_tpu_torch.ops.interpolate import interpolate_pos_embed
 
 
@@ -41,6 +56,9 @@ class ViTConfig:
     in_chans: int = 3
     ln_eps: float = 1e-6
     dtype: torch.dtype = torch.float32   # compute dtype
+    use_flash: bool = False        # attention through ops/flash_attention
+    use_fused_mlp: bool = False    # LN + MLP + residual as one kernel
+    use_fused_block: bool = False  # the whole block as ops/fused_block
 
 
 VIT_CONFIGS = {
@@ -58,47 +76,121 @@ class ViT4KConfig:
     pretrain_grid: int = 14     # 196 native pos-embed slots
     ln_eps: float = 1e-6
     dtype: torch.dtype = torch.float32
+    use_flash: bool = False
+    use_fused_mlp: bool = False
+    use_fused_block: bool = False
+
+
+def _dense(x: torch.Tensor, lin: nn.Linear, dtype: torch.dtype
+           ) -> torch.Tensor:
+    """flax Dense(dtype=dtype): input, kernel and bias promoted to
+    ``dtype``, so the product rounds to ``dtype`` before a ``dtype`` bias
+    add."""
+    return F.linear(x.to(dtype), lin.weight.to(dtype)) + lin.bias.to(dtype)
+
+
+def _ln_f32(x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
+    """flax LayerNorm with f32 parameters: f32 math and output whatever the
+    input dtype."""
+    return F.layer_norm(x.float(), norm.normalized_shape, norm.weight,
+                        norm.bias, norm.eps)
 
 
 class Attention(nn.Module):
-    """DINO attention parameters (qkv, proj); the block kernel reads them."""
+    """DINO attention (qkv, proj). The fused block kernel reads these
+    parameters; the per-op forward runs qkv -> softmax(q k^T) v -> proj,
+    the middle through ops/flash_attention.py with ``use_flash``."""
 
-    def __init__(self, dim: int):
+    def __init__(self, dim: int, num_heads: int,
+                 dtype: torch.dtype = torch.float32, use_flash: bool = False):
         super().__init__()
+        self.num_heads = num_heads
+        self.dtype = dtype
+        self.use_flash = use_flash
         self.qkv = nn.Linear(dim, 3 * dim)
         self.proj = nn.Linear(dim, dim)
 
+    def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
+        b, n, c = x.shape
+        h = self.num_heads
+        hd = c // h
+        qkv = _dense(x, self.qkv, self.dtype).view(b, n, 3, h, hd)
+        q, k, v = qkv.permute(2, 0, 3, 1, 4)              # [b, h, n, hd]
+        if self.use_flash:
+            out = attention(*(t.reshape(b * h, n, hd) for t in (q, k, v)),
+                            plain=plain).view(b, h, n, hd)
+        else:
+            s = (q.float() @ k.float().transpose(-1, -2)) * hd ** -0.5
+            p = torch.softmax(s, dim=-1).to(self.dtype)
+            out = (p.float() @ v.float()).to(self.dtype)
+        out = out.permute(0, 2, 1, 3).reshape(b, n, c)
+        return _dense(out, self.proj, self.dtype)
+
 
 class Mlp(nn.Module):
-    """DINO MLP parameters (fc1, fc2); the block kernel reads them."""
+    """DINO MLP (fc1, fc2). The fused block kernel reads these parameters;
+    the forward is Dense -> exact GELU -> Dense, or with ``use_fused`` one
+    ops/fused_mlp.py ``fused_mlp`` call on the same parameters."""
 
-    def __init__(self, dim: int, hidden: int):
+    def __init__(self, dim: int, hidden: int,
+                 dtype: torch.dtype = torch.float32, use_fused: bool = False):
         super().__init__()
+        self.dtype = dtype
+        self.use_fused = use_fused
         self.fc1 = nn.Linear(dim, hidden)
         self.fc2 = nn.Linear(hidden, dim)
 
+    def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
+        if self.use_fused:
+            w1, b1, w2, b2 = mlp_weights(self, self.dtype, x.device)
+            x = x.to(self.dtype)
+            if plain:
+                return fused_mlp_reference(x, None, None, w1, b1, w2, b2,
+                                           with_ln=False, residual=False)
+            return fused_mlp(x, w1, b1, w2, b2)
+        return _dense(F.gelu(_dense(x, self.fc1, self.dtype)), self.fc2,
+                      self.dtype)
+
 
 class Block(nn.Module):
-    """Pre-norm transformer block; its forward is one fused_vit_block call
-    (with ``plain`` set: the plain PyTorch version on any device, for
-    holding the kernels against it on the card)."""
+    """Pre-norm transformer block, dispatched as the JAX Block is: with
+    ``use_fused_block`` one fused_vit_block call on padded tokens and
+    ``n_valid``; otherwise the per-op path (module docstring). With
+    ``plain`` set every kernel op runs its plain PyTorch version on any
+    device, for holding the kernels against it on the card."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float,
-                 eps: float):
+                 eps: float, *, dtype: torch.dtype = torch.float32,
+                 use_flash: bool = False, use_fused_mlp: bool = False,
+                 use_fused_block: bool = False):
         super().__init__()
         self.num_heads = num_heads
         self.eps = eps
+        self.dtype = dtype
+        self.use_fused_mlp = use_fused_mlp
+        self.use_fused_block = use_fused_block
         self.plain = False
         self.norm1 = nn.LayerNorm(dim, eps=eps)
-        self.attn = Attention(dim)
+        self.attn = Attention(dim, num_heads, dtype, use_flash)
         self.norm2 = nn.LayerNorm(dim, eps=eps)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio))
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype)
 
     def forward(self, x: torch.Tensor, n_valid: Optional[int] = None
                 ) -> torch.Tensor:
-        fn = fused_vit_block_reference if self.plain else fused_vit_block
-        return fn(x, self, num_heads=self.num_heads, n_valid=n_valid,
-                  eps=self.eps)
+        if self.use_fused_block:
+            fn = fused_vit_block_reference if self.plain else fused_vit_block
+            return fn(x.to(self.dtype), self, num_heads=self.num_heads,
+                      n_valid=n_valid, eps=self.eps)
+        x = x + self.attn(_ln_f32(x, self.norm1), plain=self.plain)
+        if not self.use_fused_mlp:
+            return x + self.mlp(_ln_f32(x, self.norm2), plain=self.plain)
+        w1, b1, w2, b2 = mlp_weights(self.mlp, self.dtype, x.device)
+        args = (x.to(self.dtype), self.norm2.weight, self.norm2.bias, w1, b1,
+                w2, b2)
+        if self.plain:
+            return fused_mlp_reference(*args, with_ln=True, residual=True,
+                                       eps=self.eps)
+        return fused_ln_mlp_residual(*args, eps=self.eps)
 
 
 def _pad_tokens(tok: torch.Tensor) -> torch.Tensor:
@@ -126,22 +218,30 @@ class _PosEmbedCache:
 
 
 class _Encoder(nn.Module):
-    """Shared walk of both ViTs: pad once, run the blocks, LN the CLS."""
+    """Shared walk of both ViTs: the blocks (on tokens padded once, under
+    ``use_fused_block``), then LN of the CLS."""
 
-    def _init_blocks(self, dim, depth, heads, mlp_ratio, eps):
+    def _init_blocks(self, dim, depth, cfg):
         self.blocks = nn.ModuleList(
-            Block(dim, heads, mlp_ratio, eps) for _ in range(depth))
-        self.norm = nn.LayerNorm(dim, eps=eps)
+            Block(dim, cfg.num_heads, cfg.mlp_ratio, cfg.ln_eps,
+                  dtype=cfg.dtype, use_flash=cfg.use_flash,
+                  use_fused_mlp=cfg.use_fused_mlp,
+                  use_fused_block=cfg.use_fused_block)
+            for _ in range(depth))
+        self.norm = nn.LayerNorm(dim, eps=cfg.ln_eps)
         self._pe = _PosEmbedCache()
 
-    def _run(self, tok: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        n = tok.shape[1]
-        tok = _pad_tokens(tok).to(dtype)
-        for blk in self.blocks:
-            tok = blk(tok, n)
+    def _run(self, tok: torch.Tensor) -> torch.Tensor:
+        if self.cfg.use_fused_block:
+            n = tok.shape[1]
+            tok = _pad_tokens(tok)
+            for blk in self.blocks:
+                tok = blk(tok, n)
+        else:
+            for blk in self.blocks:
+                tok = blk(tok)
         # LN is per token, so normalising the CLS alone equals LN-then-slice
-        return F.layer_norm(tok[:, 0].float(), self.norm.normalized_shape,
-                            self.norm.weight, self.norm.bias, self.norm.eps)
+        return _ln_f32(tok[:, 0], self.norm)
 
 
 class _PatchEmbed(nn.Module):
@@ -161,8 +261,7 @@ class VisionTransformer(_Encoder):
                                        cfg.embed_dim)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, cfg.embed_dim))
         self.pos_embed = nn.Parameter(torch.zeros(1, s * s + 1, cfg.embed_dim))
-        self._init_blocks(cfg.embed_dim, cfg.depth, cfg.num_heads,
-                          cfg.mlp_ratio, cfg.ln_eps)
+        self._init_blocks(cfg.embed_dim, cfg.depth, cfg)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
@@ -180,7 +279,7 @@ class VisionTransformer(_Encoder):
         cls = self.cls_token.to(dt).float().expand(b, -1, -1)
         tok = torch.cat([cls, tok], dim=1)
         tok = tok + self._pe.get(self.pos_embed, gh, gw).to(dt).float()
-        return self._run(tok, dt)
+        return self._run(tok)
 
 
 class VisionTransformer4K(_Encoder):
@@ -196,8 +295,7 @@ class VisionTransformer4K(_Encoder):
         self.cls_token = nn.Parameter(torch.zeros(1, 1, cfg.output_embed_dim))
         self.pos_embed = nn.Parameter(
             torch.zeros(1, s * s + 1, cfg.output_embed_dim))
-        self._init_blocks(cfg.output_embed_dim, cfg.depth, cfg.num_heads,
-                          cfg.mlp_ratio, cfg.ln_eps)
+        self._init_blocks(cfg.output_embed_dim, cfg.depth, cfg)
 
     def forward(self, grid: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
@@ -210,7 +308,7 @@ class VisionTransformer4K(_Encoder):
         cls = self.cls_token.to(dt).float().expand(b, -1, -1)
         tok = torch.cat([cls, x], dim=1)
         tok = tok + self._pe.get(self.pos_embed, gh, gw).to(dt).float()
-        return self._run(tok, dt)
+        return self._run(tok)
 
 
 def init_dino_(model: nn.Module, generator: torch.Generator) -> nn.Module:

@@ -29,18 +29,22 @@ NARROW_4K = dict(input_embed_dim=64, output_embed_dim=192, depth=2,
                  num_heads=2)
 
 
-def narrow_jax_hipt(dtype):
+def narrow_jax_hipt(dtype, **flags):
     return jhipt.HIPT4K(
         vit256_config=dataclasses.replace(jvit.VIT_CONFIGS["vit_small"],
-                                          dtype=dtype, **NARROW_256),
-        vit4k_config=jvit.ViT4KConfig(dtype=dtype, **NARROW_4K))
+                                          dtype=dtype, **NARROW_256, **flags),
+        vit4k_config=jvit.ViT4KConfig(dtype=dtype, **NARROW_4K, **flags))
 
 
-def narrow_port_hipt(dtype):
+def narrow_port_hipt(dtype, use_flash=False, use_fused_mlp=False,
+                     use_fused_block=True):
+    """The port's narrow HIPT; by default every block is the fused block,
+    as build_encoder makes it."""
     return make_hipt_encoder(
-        dtype, dataclasses.replace(vit.VIT_CONFIGS["vit_small"],
-                                   **NARROW_256),
-        vit.ViT4KConfig(**NARROW_4K))
+        dtype, use_flash, use_fused_mlp, use_fused_block,
+        vit256_cfg=dataclasses.replace(vit.VIT_CONFIGS["vit_small"],
+                                       **NARROW_256),
+        vit4k_cfg=vit.ViT4KConfig(**NARROW_4K))
 
 
 def narrow_params(seed=0):
@@ -86,10 +90,10 @@ def test_state_dict_round_trip():
     assumes; narrow widths)."""
     model = make_hipt_encoder(
         torch.float32,
-        dataclasses.replace(vit.VIT_CONFIGS["vit_small"], embed_dim=32,
-                            num_heads=2),
-        vit.ViT4KConfig(input_embed_dim=32, output_embed_dim=32,
-                        num_heads=2),
+        vit256_cfg=dataclasses.replace(vit.VIT_CONFIGS["vit_small"],
+                                       embed_dim=32, num_heads=2),
+        vit4k_cfg=vit.ViT4KConfig(input_embed_dim=32, output_embed_dim=32,
+                                  num_heads=2),
         generator=torch.Generator().manual_seed(3))
     sd = model.state_dict()
     split = {p: {k[len(p) + 1:]: v.numpy() for k, v in sd.items()

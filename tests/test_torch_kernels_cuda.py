@@ -11,6 +11,8 @@ import torch
 
 from hipt_abmil_atec23_tpu_torch.models.abmil import CLAM_SB
 from hipt_abmil_atec23_tpu_torch.models.vit import Block
+from hipt_abmil_atec23_tpu_torch.ops import flash_attention as fa
+from hipt_abmil_atec23_tpu_torch.ops import fused_mlp as fm
 from hipt_abmil_atec23_tpu_torch.ops import gated_attention_pool as gap
 from hipt_abmil_atec23_tpu_torch.ops.fused_block import (
     fused_vit_block, fused_vit_block_reference)
@@ -184,3 +186,146 @@ def test_dct_unpack_kernel_refuses_what_it_does_not_take(cuda_device,
     assert strided.shape == bmb.shape and not strided.is_contiguous()
     with pytest.raises(ValueError):
         jpegdct.dct_unpack(bmc, strided, valn, esc8, q, 1024)
+
+
+def _within(got, want, atol, rtol):
+    got, want = got.float(), want.float()
+    return bool(((got - want).abs() <= atol + rtol * want.abs()).all()
+                and torch.isfinite(got).all())
+
+
+def _mlp_inputs(rows, d, h, dev, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    bf16 = torch.bfloat16
+    x = torch.randn(rows, d, generator=g).to(dev, bf16)
+    w1 = (torch.randn(d, h, generator=g) * d ** -0.5).to(dev, bf16)
+    w2 = (torch.randn(h, d, generator=g) * h ** -0.5).to(dev, bf16)
+    b1, b2 = ((0.1 * torch.randn(n, generator=g)).to(dev) for n in (h, d))
+    gamma = (1 + 0.1 * torch.randn(d, generator=g)).to(dev)
+    beta = (0.1 * torch.randn(d, generator=g)).to(dev)
+    return x, gamma, beta, w1, b1, w2, b2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_ln", [True, False])
+@pytest.mark.parametrize("rows,d,h", [(131, 384, 1536), (64, 192, 768),
+                                      (5, 64, 256), (1000, 32, 128)])
+def test_fused_mlp_kernel_matches_plain(rows, d, h, with_ln, cuda_device):
+    """bf16 kernel against the plain version (f32 products) on the card:
+    |kernel - plain| <= 3e-2 + 5e-2 |plain| (the kernel's products round
+    the normalised rows and the hidden to bf16); ragged row counts."""
+    x, gamma, beta, w1, b1, w2, b2 = _mlp_inputs(rows, d, h, cuda_device)
+    before = fm.fused_mlp.launches
+    with torch.inference_mode():
+        if with_ln:
+            got = fm.fused_ln_mlp_residual(x, gamma, beta, w1, b1, w2, b2)
+        else:
+            got = fm.fused_mlp(x, w1, b1, w2, b2)
+        want = fm.fused_mlp_reference(x, gamma, beta, w1, b1, w2, b2,
+                                      with_ln=with_ln, residual=with_ln)
+    torch.cuda.synchronize()
+    assert fm.fused_mlp.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == x.shape
+    assert _within(got, want, 3e-2, 5e-2)
+
+
+@pytest.mark.cuda
+def test_fused_mlp_kernel_refuses_what_it_does_not_take(cuda_device):
+    """No quiet fallback: f32 rows, D not a multiple of 32, H not a
+    multiple of 64 and a transposed weight view raise."""
+    x, gamma, beta, w1, b1, w2, b2 = _mlp_inputs(8, 64, 256, cuda_device)
+    with pytest.raises(ValueError):
+        fm.fused_mlp(x.float(), w1, b1, w2, b2)
+    with pytest.raises(ValueError):
+        fm.fused_mlp(x[:, :48], w1[:48], b1, w2[:, :48], b2[:48])
+    with pytest.raises(ValueError):
+        fm.fused_mlp(x, w1[:, :96], b1[:96], w2[:96], b2)
+    with pytest.raises(ValueError):
+        fm.fused_ln_mlp_residual(x, gamma, beta, w2.t(), b1, w1.t(), b2)
+
+
+def _qkv(bh, n, d, dev, seed=0):
+    """Unit-normal k and v, q at 3x: logits of std 3, a peaked softmax
+    whose output a dropped key tile moves well past the tolerance."""
+    g = torch.Generator().manual_seed(seed)
+    q, k, v = (torch.randn(bh, n, d, generator=g) for _ in range(3))
+    return [t.to(dev, torch.bfloat16) for t in (3 * q, k, v)]
+
+
+def _attn_within(got, want):
+    """|kernel - plain| <= 5e-2 rms(plain) + 2e-2 |plain|: the output's
+    spread shrinks with N, so the atol follows it."""
+    rms = want.float().square().mean().sqrt().item()
+    return _within(got, want, 5e-2 * rms, 2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,n,valid,d", [(12, 257, 257, 64),
+                                          (12, 257, 257, 32),
+                                          (4, 264, 257, 64), (3, 100, 37, 32),
+                                          (2, 1500, 1400, 64), (5, 1, 1, 64)])
+def test_fused_attention_kernel_matches_plain(bh, n, valid, d, cuda_device):
+    """Two-pass kernel against the plain version (the same rounding
+    points): |kernel - plain| <= 5e-2 rms(plain) + 2e-2 |plain|; ragged
+    N, masked keys, a medium N the dispatcher sends to the query-tiled
+    branch."""
+    q, k, v = _qkv(bh, n, d, cuda_device)
+    before = fa.fused_attention.launches
+    with torch.inference_mode():
+        got = fa.fused_attention(q, k, v, valid)
+        want = fa.fused_attention_reference(q, k, v, valid)
+    torch.cuda.synchronize()
+    assert fa.fused_attention.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    assert _attn_within(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,n,valid,d", [(2, 768, 700, 64),
+                                          (3, 300, 300, 32), (1, 70, 9, 64)])
+def test_flash_attention_kernel_matches_plain(bh, n, valid, d, cuda_device):
+    """Online-softmax kernel against its f32 plain version: p rounds to
+    bf16 for the product, so |kernel - plain| <= 5e-2 rms(plain) +
+    2e-2 |plain|."""
+    q, k, v = _qkv(bh, n, d, cuda_device)
+    before = fa.flash_attention.launches
+    with torch.inference_mode():
+        got = fa.flash_attention(q, k, v, valid)
+        want = fa.flash_attention_reference(q, k, v, valid)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    assert _attn_within(got, want)
+
+
+@pytest.mark.cuda
+def test_attention_dispatch_takes_flash_at_long_n(cuda_device):
+    """Past 12 MiB of bf16 K/V (N > 49152 at d=64) the dispatcher launches
+    the flash kernel, as the JAX dispatcher takes its flash branch."""
+    q, k, v = _qkv(1, 50_000, 64, cuda_device)
+    assert fa.attention_branch(50_000, 64, 2) == "flash"
+    before = (fa.fused_attention.launches, fa.flash_attention.launches)
+    with torch.inference_mode():
+        got = fa.attention(q, k, v, 49_000)
+        want = fa.attention(q, k, v, 49_000, plain=True)
+    torch.cuda.synchronize()
+    assert (fa.fused_attention.launches, fa.flash_attention.launches) == (
+        before[0], before[1] + 1)
+    assert _attn_within(got, want)
+
+
+@pytest.mark.cuda
+def test_attention_kernels_refuse_what_they_do_not_take(cuda_device):
+    """No quiet fallback: f32 operands, head size 48, valid_len 0 or past
+    N and mismatched shapes raise."""
+    q, k, v = _qkv(2, 40, 64, cuda_device)
+    for fn in (fa.fused_attention, fa.flash_attention):
+        with pytest.raises(ValueError):
+            fn(q.float(), k.float(), v.float())
+        with pytest.raises(ValueError):
+            fn(q[..., :48], k[..., :48], v[..., :48])
+        with pytest.raises(ValueError):
+            fn(q, k, v, 0)
+        with pytest.raises(ValueError):
+            fn(q, k, v, 41)
+        with pytest.raises(ValueError):
+            fn(q, k[:, :20], v[:, :20])

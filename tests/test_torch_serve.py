@@ -211,7 +211,9 @@ def test_serve_isolates_a_failing_slide(served, tmp_path, monkeypatch):
 
 def test_port_serve_path_imports_no_jax(served, tmp_path):
     """A fresh interpreter imports the port's serve, encode and jpegdct
-    modules and chip_smoke, runs the port's serve_once on the same slides
+    modules and chip_smoke, runs the per-op kernel configuration (the
+    flash_attention and fused_mlp ops) against the fused-block one on the
+    same weights (f32, one region), runs the port's serve_once on the same slides
     (narrow random HIPT, the same checkpoint; the YCbCr slide rides the DCT
     rung) and one encode_stream on the DCT rung, and ends with no jax, flax
     or hipt_abmil_atec23_tpu module in sys.modules."""
@@ -231,13 +233,25 @@ def test_port_serve_path_imports_no_jax(served, tmp_path):
         from hipt_abmil_atec23_tpu_torch.slideio.reader import open_slide
         from hipt_abmil_atec23_tpu_torch.utils.config import (
             EncoderConfig, ModelConfig, SegConfig, TileConfig)
+        widths = dict(
+            vit256_cfg=dataclasses.replace(vit.VIT_CONFIGS["vit_small"],
+                                           embed_dim=64, depth=2,
+                                           num_heads=2),
+            vit4k_cfg=vit.ViT4KConfig(input_embed_dim=64,
+                                      output_embed_dim=192, depth=2,
+                                      num_heads=2))
         model = make_hipt_encoder(
-            torch.float32,
-            dataclasses.replace(vit.VIT_CONFIGS["vit_small"], embed_dim=64,
-                                depth=2, num_heads=2),
-            vit.ViT4KConfig(input_embed_dim=64, output_embed_dim=192,
-                            depth=2, num_heads=2),
-            generator=torch.Generator().manual_seed(0))
+            torch.float32, use_fused_block=True,
+            generator=torch.Generator().manual_seed(0), **widths)
+        # the per-op kernel configuration on the same weights
+        per_op = make_hipt_encoder(torch.float32, True, True, **widths)
+        per_op.load_state_dict(model.state_dict())
+        x = torch.from_numpy(np.random.default_rng(0).normal(
+            size=(1, 256, 256, 3)).astype(np.float32))
+        with torch.inference_mode():
+            per_op_feats = per_op(x)
+            fused_feats = model(x)
+        assert float((per_op_feats - fused_feats).abs().max()) < 1e-4
         enc = EncoderConfig(batch_size=8, dtype="float32")
         cfg = ServeConfig(
             slide_dir={str(slide_dir)!r}, out_dir={str(tmp_path / 'o')!r},
