@@ -6,10 +6,13 @@ serving path on an NVIDIA H100 through its hand-written CUDA kernels.
 Phases (any failure exits non-zero, and no result line is printed):
   1. device: require CUDA; print the card's name and power limit.
   2. kernels: build the five CUDA sources from the checkout (one nvcc per
-     source, side by side, sm_90a) and hold each of the six kernels
+     source, side by side, sm_90a) and hold each of the seven kernels
      against its plain PyTorch version on the card, at the main path's
      shapes, with the stated tolerance; time both, the bound of the same
      work, and the one PyTorch call that computes it where there is one.
+     The pool runs at the HIPT head (L 16) and at the reference CLAM
+     'small' head (L 512) on a [100000, 1024] slide bag; its partial mode
+     at both widths on full slide bags.
      flash_attention is driven through attention() at a long N, where the
      dispatcher takes its flash branch (counts zeroed before, read after).
   3. plane slice: two in-memory 8192^2 slides (seeded H&E-like texture served
@@ -33,10 +36,18 @@ Phases (any failure exits non-zero, and no result line is printed):
      gated_pool non-zero and fused_block zero after. Features held against
      the plain pass of the same configuration and against phase 3's
      fused-block features; ms per region of both configurations printed.
-  6. serve: serve_once over two synthetic JPEG YCbCr 4:2:0 slides of 8192^2
+  6. sharded: the instance-sharded full-bag path (parallel/) over a
+     process group of one (NCCL): sharded_clam_forward, plain and through
+     the partial kernel, on a [100000, 1024] bag with a CLAM 'small' head
+     against apply_pooled; four shards (one all-masked) through the partial
+     kernel merged by combine_partials against the full-bag kernel; two
+     epochs of train_full_bags_sharded on six seeded slide bags of
+     20k-100k x 1024 (ms per optimizer step printed). Counts zeroed
+     before; gated_pool_partial non-zero after.
+  7. serve: serve_once over two synthetic JPEG YCbCr 4:2:0 slides of 8192^2
      on disk (skipped, with a line saying what is missing, where cv2, h5py
      or the native reader's build dependencies are absent).
-  7. profile (only with --profile PATH): where one warm encode_stream's
+  8. profile (only with --profile PATH): where one warm encode_stream's
      time goes, stage by stage, and torch.profiler kernel tables of the
      fused-block and the per-op configurations, written to PATH and
      PATH.per_op.
@@ -63,7 +74,8 @@ import torch
 from hipt_abmil_atec23_tpu_torch.device import require_cuda
 from hipt_abmil_atec23_tpu_torch.engine.encode import (
     _decode_batch, build_encoder, encode_stream, probe_dct_caps)
-from hipt_abmil_atec23_tpu_torch.models.abmil import build_mil_model
+from hipt_abmil_atec23_tpu_torch.models.abmil import (
+    build_mil_model, init_reference_weights)
 from hipt_abmil_atec23_tpu_torch.models.hipt import make_hipt_encoder
 from hipt_abmil_atec23_tpu_torch.models.vit import Block
 from hipt_abmil_atec23_tpu_torch.ops import flash_attention as fa
@@ -217,43 +229,120 @@ def _kernel_block(dev, g) -> dict:
                   pms, shape, nbytes, flops, BF16_FLOP_S, lib)
 
 
+def _reference_clam(size_arg, seed, dev):
+    """A CLAM_SB at the reference init's scale (xavier weights) with seeded
+    non-zero biases: the full-width heads' weights."""
+    g = torch.Generator().manual_seed(seed)
+    model = init_reference_weights(
+        build_mil_model("clam_sb", size_arg=size_arg, n_classes=2), g)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.Linear):
+                m.bias.copy_(torch.randn(m.bias.shape, generator=g) * 0.1)
+    return model.to(dev).eval()
+
+
+def _pool_bytes_flops(p, n):
+    """Bag, mask and weights read once, scores and logits written once;
+    the two projections, the gate and the pooling per instance."""
+    d_in, l_dim = p.w_f.shape
+    d_att, c_dim = p.w_a.shape[1], p.w_cls.shape[1]
+    wbytes = sum(t.numel() * 4 for t in p)
+    nbytes = n * d_in * 4 + n + wbytes + n * 4 + max(c_dim, l_dim + 2) * 4
+    flops = n * (2 * d_in * l_dim + 4 * l_dim * d_att + 2 * d_att
+                 + 2 * l_dim) + 2 * l_dim * c_dim
+    return nbytes, flops
+
+
+def _pool_row(name, p, bag, err, fn, plain, shape):
+    ms, pms = gpu_timer(fn), gpu_timer(plain)
+    b_ms, b_by = bound(*_pool_bytes_flops(p, bag.shape[0]), F32_FLOP_S)
+    log(f"{name} {shape}: max_abs_err {err:.3g} (bound {POOL_TOL}); kernel "
+        f"{ms:.4f} ms, plain {pms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    if not err <= POOL_TOL:
+        raise SystemExit(f"{name} disagrees at {shape}")
+    return {"shape": shape, "ms": ms, "plain_ms": pms, "bound_ms": b_ms,
+            "bound_by": b_by, "max_abs_err": err}
+
+
 def _kernel_pool(dev, g) -> dict:
     model = _random_clam(g, dev)
     p = gap.params_from_clam(model)
-    worst, timed = 0.0, None
-    # the serve path's 512 bucket (timed), a 4096 bag, a whole-slide 100k
-    for n in (512, 4096, 100_000):
-        bag = torch.randn(n, 192, generator=g).to(dev)
+    rows = []
+    # the serve path's 512 bucket (the record's shape), a 4096 bag, a
+    # whole-slide 100k, all hipt_smaller (L 16); then the reference CLAM
+    # 'small' head (L 512, D_att 256) on a full ResNet50-trunc slide bag
+    cases = [(n, 192, model, p) for n in (512, 4096, 100_000)]
+    small = _reference_clam("small", 3, dev)
+    cases.append((100_000, 1024, small, gap.params_from_clam(small)))
+    for n, d_in, clam, cp in cases:
+        bag = torch.randn(n, d_in, generator=g).to(dev)
         mask = torch.arange(n, device=dev) < n - max(1, n // 50)
         with torch.inference_mode():
-            out = gap.apply_pooled(model, bag, mask)
+            out = gap.apply_pooled(clam, bag, mask)
             ref_logits, ref_scores = gap.gated_attention_pool_reference(
-                bag, mask, p)
+                bag, mask, cp)
             torch.cuda.synchronize()
             err = max((out.logits[0] - ref_logits).abs().max().item(),
                       (out.a_raw[0] - ref_scores).abs().max().item())
-            ms = gpu_timer(lambda: gap.gated_attention_pool(bag, p,
-                                                            mask=mask))
-            pms = gpu_timer(lambda: gap.gated_attention_pool_reference(
-                bag, mask, p))
-        log(f"gated_pool N={n} (tail masked): max_abs_err {err:.3g} "
-            f"(bound {POOL_TOL}); kernel {ms:.4f} ms, plain {pms:.4f} ms")
-        if not err <= POOL_TOL:
-            raise SystemExit(f"gated_pool disagrees at N={n}")
-        worst = max(worst, err)
-        if timed is None:
-            d_in, l_dim = p.w_f.shape
-            d_att, c_dim = p.w_a.shape[1], p.w_cls.shape[1]
-            wbytes = sum(t.numel() * 4 for t in p)
-            nbytes = bag.numel() * 4 + n + wbytes + n * 4 + c_dim * 4
-            flops = n * (2 * d_in * l_dim + 4 * l_dim * d_att + 2 * d_att
-                         + 2 * l_dim) + 2 * l_dim * c_dim
-            timed = (ms, pms, f"[{n},192] f32", nbytes, flops)
-    ms, pms, shape, nbytes, flops = timed
-    return record("gated_pool",
-                  "hipt_abmil_atec23_tpu_torch/kernels/csrc/gated_pool.cu",
-                  "hipt_abmil_atec23_tpu/ops/gated_attention_pool.py:87",
-                  worst, ms, pms, shape, nbytes, flops, F32_FLOP_S, None)
+            rows.append(_pool_row(
+                "gated_pool", cp, bag, err,
+                lambda: gap.gated_attention_pool(bag, cp, mask=mask),
+                lambda: gap.gated_attention_pool_reference(bag, mask, cp),
+                f"[{n},{d_in}] f32, L {cp.w_f.shape[1]}, tail masked"))
+        del bag, out
+    first = rows[0]
+    rec = record("gated_pool",
+                 "hipt_abmil_atec23_tpu_torch/kernels/csrc/gated_pool.cu",
+                 "hipt_abmil_atec23_tpu/ops/gated_attention_pool.py:87",
+                 max(r["max_abs_err"] for r in rows), first["ms"],
+                 first["plain_ms"], first["shape"],
+                 *_pool_bytes_flops(p, 512), F32_FLOP_S, None)
+    rec["other_shapes"] = rows[1:]
+    return rec
+
+
+def _partial_err(got, want) -> float:
+    """max of |dm|, |dscores| and, relative to l (acc / l is the pooled
+    vector, both sums over the bag), |dacc| / l and |dl| / l."""
+    acc, m, l, s = got
+    racc, rm, rl, rs = want
+    scale = max(rl.item(), 1e-30)
+    return max((m - rm).abs().item(), (s - rs).abs().max().item(),
+               (acc - racc).abs().max().item() / scale,
+               (l - rl).abs().item() / scale)
+
+
+def _kernel_pool_partial(dev, g) -> dict:
+    """The partial mode on a full slide bag at the 'small' (the record's
+    shape) and 'hipt_smaller' widths, against its plain version."""
+    rows = []
+    for size_arg, d_in in (("small", 1024), ("hipt_smaller", 192)):
+        p = gap.params_from_clam(_reference_clam(size_arg, 4, dev))
+        n = 100_000
+        bag = torch.randn(n, d_in, generator=g).to(dev)
+        mask = torch.arange(n, device=dev) < n - 1234
+        with torch.inference_mode():
+            got = gap.gated_attention_pool_partial(bag, p, mask=mask)
+            want = gap.gated_attention_pool_partial_reference(bag, mask, p)
+            torch.cuda.synchronize()
+            rows.append(_pool_row(
+                "gated_pool_partial", p, bag, _partial_err(got, want),
+                lambda: gap.gated_attention_pool_partial(bag, p, mask=mask),
+                lambda: gap.gated_attention_pool_partial_reference(
+                    bag, mask, p),
+                f"[{n},{d_in}] f32, L {p.w_f.shape[1]}, tail masked"))
+        if len(rows) == 1:
+            timed = _pool_bytes_flops(p, n)
+        del bag, got, want
+    first = rows[0]
+    rec = record("gated_pool_partial",
+                 "hipt_abmil_atec23_tpu_torch/kernels/csrc/gated_pool.cu",
+                 "hipt_abmil_atec23_tpu/ops/gated_attention_pool.py:153",
+                 max(r["max_abs_err"] for r in rows), first["ms"],
+                 first["plain_ms"], first["shape"], *timed, F32_FLOP_S, None)
+    rec["other_shapes"] = rows[1:]
+    return rec
 
 
 def _device_pack(slide, coords, dev, caps=None, region=REGION):
@@ -515,6 +604,7 @@ def phase_kernels(dev, dct_slide) -> dict:
     g = torch.Generator().manual_seed(0)
     records = {"fused_block": _kernel_block(dev, g),
                "gated_pool": _kernel_pool(dev, g),
+               "gated_pool_partial": _kernel_pool_partial(dev, g),
                "dct_unpack": _kernel_unpack(dev, dct_slide),
                "fused_mlp": _kernel_mlp(dev, g),
                "fused_attention": _kernel_attention(dev, g)}
@@ -588,6 +678,7 @@ def score(model, feats, dev):
 
 COUNTERS = {"fused_block": fused_vit_block,
             "gated_pool": gap.gated_attention_pool,
+            "gated_pool_partial": gap.gated_attention_pool_partial,
             "dct_unpack": jpegdct.dct_unpack,
             "fused_mlp": fm.fused_mlp,
             "fused_attention": fa.fused_attention,
@@ -701,6 +792,7 @@ def _plain_copy(model, widths, *flags):
     return plain
 
 
+# ------------------------------------------------------------------ phase 5
 def phase_per_op_slice(dev, res, *, region=REGION, batch=2) -> dict:
     """The per-op configuration (use_flash + use_fused_mlp) on phase 3's
     plane slides and weights, through build_encoder(model=...) ->
@@ -847,7 +939,148 @@ def phase_dct_slice(dev, res, slides, *, region=REGION) -> dict:
             "plain_ms_region": ms_p}
 
 
-# ------------------------------------------------------------------ phase 5
+# ------------------------------------------------------------------ phase 6
+class MemoryBagStore:
+    """Feature bags held in host memory (BagDataset's store)."""
+
+    def __init__(self, bags):
+        self.bags = bags
+
+    def load_features(self, slide_id):
+        return self.bags[slide_id]
+
+
+TRAIN_BAGS = (100_000, 20_000, 60_000, 40_000)   # ResNet50-trunc slides
+VAL_BAGS = (80_000, 30_000)
+
+
+def phase_sharded(dev, *, n=100_000, d_in=1024, size_arg="small",
+                  train_bags=TRAIN_BAGS, val_bags=VAL_BAGS) -> dict:
+    """The instance-sharded full-bag path at world size 1 (NCCL on the card,
+    gloo on the CPU): (a) sharded_clam_forward, plain and through the
+    partial kernel, against apply_pooled and the plain pool; (b) four
+    shards of one bag through the partial kernel, one all-masked, merged by
+    combine_partials against the full-bag kernel; (c) two epochs of
+    train_full_bags_sharded on seeded full slide bags. Counts zeroed
+    before, gated_pool_partial non-zero after."""
+    import torch.distributed as dist
+    from hipt_abmil_atec23_tpu_torch.data.bags import BagDataset
+    from hipt_abmil_atec23_tpu_torch.parallel import full_bag_train as fbt
+    from hipt_abmil_atec23_tpu_torch.parallel.mesh import make_mesh
+    from hipt_abmil_atec23_tpu_torch.parallel.multihost import init_multihost
+    from hipt_abmil_atec23_tpu_torch.parallel.sharded_bag import (
+        sharded_clam_forward)
+    from hipt_abmil_atec23_tpu_torch.utils.config import ExperimentConfig
+
+    world = init_multihost(device=dev)
+    log(f"sharded: process group of {world} ({dist.get_backend()})")
+    try:
+        mesh = make_mesh([("inst", world)], dev.type)
+        clam = _reference_clam(size_arg, 5, dev)
+        p = gap.params_from_clam(clam)
+        g = torch.Generator().manual_seed(6)
+        bag = torch.randn(n, d_in, generator=g).to(dev)
+        mask = torch.arange(n, device=dev) < n - n // 40
+        sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" \
+            else (lambda: None)
+        zero_counts()
+        with torch.no_grad():
+            out = gap.apply_pooled(clam, bag, mask)
+            ref, _ = gap.gated_attention_pool_reference(bag, mask, p)
+            for fused in (False, True):
+                logits, a_raw = sharded_clam_forward(clam, bag, mask, mesh,
+                                                     use_fused=fused)
+                sync()
+                err = max((logits - out.logits).abs().max().item(),
+                          (logits[0] - ref).abs().max().item(),
+                          (a_raw[0, mask] - out.a_raw[0, mask]).abs().max()
+                          .item())
+                log(f"sharded forward [{n},{d_in}] {size_arg} fused={fused}: "
+                    f"max err against apply_pooled and the plain pool "
+                    f"{err:.3g} (bound {POOL_TOL})")
+                if not (err <= POOL_TOL and torch.isfinite(logits).all()):
+                    raise SystemExit(f"sharded forward (fused={fused}) "
+                                     "disagrees with apply_pooled")
+            # (b) four shards on one card, the third all-masked
+            cut = mask.clone()
+            cut[n // 2:3 * n // 4] = False
+            shards = [gap.gated_attention_pool_partial(
+                bag[i:i + n // 4], p, mask=cut[i:i + n // 4])
+                for i in range(0, n, n // 4)]
+            acc, m, l, _ = (torch.stack([s[j] for s in shards])
+                            for j in range(4))
+            got = gap.combine_partials(acc[:, 0], m, l, p)
+            want, _ = gap.gated_attention_pool(bag, p, mask=cut)
+            sync()
+            err = (got - want).abs().max().item()
+            log(f"combine_partials over 4 shards (one all-masked, m "
+                f"{m[2].item():.3g}, l {l[2].item():.3g}): max err against "
+                f"the full-bag kernel {err:.3g} (bound {POOL_TOL})")
+            if not (err <= POOL_TOL and l[2].item() == 0):
+                raise SystemExit("combine_partials disagrees with the "
+                                 "full-bag kernel")
+        del bag, out, acc
+        # (c) full-bag training, one optimizer step per slide
+        rng = np.random.default_rng(7)
+        sizes = train_bags + val_bags
+        store = MemoryBagStore({f"s{i}": rng.standard_normal(
+            (k, d_in), dtype=np.float32) for i, k in enumerate(sizes)})
+        labels = np.arange(len(sizes)) % 2
+        ids = list(store.bags)
+        cfg = ExperimentConfig.from_dict({
+            "task": {"n_classes": 2},
+            "bags": {"max_patches_per_slide": None},
+            "model": {"model_type": "clam_sb", "model_size": size_arg},
+            "train": {"lr": 2e-4, "max_epochs": 2, "seed": 0}})
+        mk = lambda sel: BagDataset([ids[i] for i in sel], labels[sel],
+                                    store, cfg.bags)
+        nt = len(train_bags)
+        step_ms = []
+        real_step = fbt.sharded_bag_train_step
+
+        def timed_step(*a, **k):
+            sync()
+            t0 = time.perf_counter()
+            loss = real_step(*a, **k)
+            sync()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            return loss
+
+        fbt.sharded_bag_train_step = timed_step
+        try:
+            t0 = time.perf_counter()
+            _, hist = fbt.train_full_bags_sharded(
+                cfg, mk(list(range(nt))), mk(list(range(nt, len(sizes)))),
+                mesh, verbose=False)
+            wall = time.perf_counter() - t0
+        finally:
+            fbt.sharded_bag_train_step = real_step
+        launches = read_counts()
+        for h in hist:
+            log(f"full-bag train epoch {h['epoch']}: train_loss "
+                f"{h['train_loss']:.6g} val_loss {h['val_loss']:.6g} "
+                f"val_auc {h['val_auc']}")
+        if not all(np.isfinite([h["train_loss"], h["val_loss"]]).all()
+                   for h in hist):
+            raise SystemExit("full-bag training gave a non-finite loss")
+        warm = step_ms[nt:]
+        log(f"full-bag train: {len(step_ms)} steps on bags of {train_bags} x "
+            f"{d_in} ({size_arg}), ms per optimizer step "
+            f"{[round(t, 3) for t in step_ms]} (second "
+            f"epoch mean {sum(warm) / len(warm):.3f}); 2 epochs "
+            f"{wall:.2f} s")
+        log(f"sharded path launches: {launches}")
+        if launches["gated_pool_partial"] == 0:
+            raise SystemExit("the sharded path never launched "
+                             "gated_pool_partial")
+        return {"launches": launches,
+                "owned": {"gated_pool_partial":
+                          launches["gated_pool_partial"]}}
+    finally:
+        dist.destroy_process_group()
+
+
+# ------------------------------------------------------------------ phase 7
 def phase_serve(dev, encoder, clam, *, slide=SLIDE, region=REGION) -> None:
     try:
         import cv2  # noqa: F401
@@ -895,7 +1128,7 @@ def phase_serve(dev, encoder, clam, *, slide=SLIDE, region=REGION) -> None:
             f"{sum(r['n_regions'] for r in done)} regions in {wall:.2f} s")
 
 
-# ------------------------------------------------------------------ phase 6
+# ------------------------------------------------------------------ phase 8
 def _busy_us(spans) -> float:
     """Length of the union of (start, end) intervals."""
     busy, end = 0.0, -math.inf
@@ -1033,7 +1266,7 @@ def set_launches(records, paths) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", metavar="PATH",
-                    help="also profile one slide's encode_stream (phase 7) "
+                    help="also profile one slide's encode_stream (phase 8) "
                          "and write the kernel tables to PATH and "
                          "PATH.per_op")
     args = ap.parse_args()
@@ -1050,13 +1283,14 @@ def main() -> int:
     res = phase_slice(dev, planes)
     dres = phase_dct_slice(dev, res, dct_slides)
     pres = phase_per_op_slice(dev, res)
+    sres = phase_sharded(dev)
     phase_serve(dev, res["encoder"], res["clam"])
     if args.profile:
         phase_profile(dev, res["encoder"], pres["encoder"], planes[0],
                       dct_slides[0], args.profile)
     records = kres["records"]
     set_launches(records, {"attention_long_n": kres, "plane": res,
-                           "dct": dres, "per_op": pres})
+                           "dct": dres, "per_op": pres, "sharded": sres})
     log(f"card: {smi}")
     log(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -5,7 +5,9 @@ The JAX package stays the reference; this package mirrors its layout so each
 module has a counterpart there, and imports nothing of it. It runs the
 serving path: slide tiling, the transfer rungs (sparse-DCT packs, YCbCr
 planes, RGB) with their decode on the device, the HIPT_4K region encoder
-(ViT-256 -> ViT-4K) and the CLAM_SB gated-attention MIL head.
+(ViT-256 -> ViT-4K) and the CLAM_SB gated-attention MIL head; and exact
+full-bag MIL inference and training with the instance axis sharded over
+processes (torch.distributed).
 
 The DCT unpack, every transformer block and the MIL pooling run through
 CUDA kernels written by hand for sm_90a (``kernels/csrc``). The rule is by
@@ -16,11 +18,14 @@ Subpackages:
   models   — ViT-256 / ViT-4K / HIPT4K, CLAM_SB, checkpoint bridges
   ops      — DCT decode, fused ViT block, gated-attention pooling, YCbCr
              decode, masking
-  engine   — encoder + slide stream with its rung selector, serving
+  engine   — encoder + slide stream with its rung selector, serving,
+             host metrics, optimizers
+  parallel — process groups, meshes, instance-sharded forward and trainer
   slideio  — native slide reader binding, segmentation, coordinates,
              synthetic and in-memory slides
-  utils    — the configuration dataclasses
-  data     — feature-bag storage
+  utils    — the configuration dataclasses, seeding
+  data     — feature-bag storage, full-bag datasets, manifests, synthetic
+             bags
   explain  — attention blockmaps
   kernels  — CUDA sources and their nvcc/ctypes build
 """

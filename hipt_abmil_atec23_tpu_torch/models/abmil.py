@@ -99,6 +99,21 @@ class CLAM_SB(nn.Module):
         return MILOutput(logits, y_prob, y_hat, a_raw, {})
 
 
+def init_reference_weights(model: nn.Module,
+                           generator: Optional[torch.Generator] = None
+                           ) -> nn.Module:
+    """The reference's initialisation (utils/utils.py:217-226): every
+    Linear gets xavier-normal weights and zero bias. (The JAX package draws
+    flax's truncated glorot normal instead, so the two packages start from
+    different weights for one seed.)"""
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, nn.Linear):
+                nn.init.xavier_normal_(m.weight, generator=generator)
+                nn.init.zeros_(m.bias)
+    return model
+
+
 def build_mil_model(model_type: str, *, size_arg: str = "hipt_smaller",
                     n_classes: int = 2, gate: bool = True) -> CLAM_SB:
     """Model-type dispatch (reference: main.py:329); only the gated

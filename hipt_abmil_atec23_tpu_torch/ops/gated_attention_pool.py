@@ -2,15 +2,18 @@
 (kernels/csrc/gated_pool.cu), with its plain PyTorch version beside it.
 
 Counterpart of hipt_abmil_atec23_tpu/ops/gated_attention_pool.py (the TPU
-kernel ``_kernel``, launcher ``_pallas_pool``): over a masked bag
+kernels ``_kernel`` and ``_kernel_dma``, launchers ``_pallas_pool`` and
+``_pallas_pool_dma``): over a masked bag
 
     h = relu(X W_f + b_f), a = tanh(h W_a + b_a), g = sigmoid(h W_b + b_b),
     s = (a * g) w_c + b_c, masked to -1e30,
     logits = (sum_i w_i h_i) W_cls + b_cls with w = softmax over valid s,
 
 returning the logits and the raw scores (the heatmap contract,
-model_clam.py:151). Masked rows weigh exactly 0, so an all-masked bag gives
-the bias logits. All math is f32.
+model_clam.py:151), or, in partial mode (the TPU kernel's ``partial_out``),
+the shard-local online-softmax state (acc, m, l) that
+``combine_partials`` merges across shards. Masked rows weigh exactly 0, so
+an all-masked bag gives the bias logits. All math is f32.
 
 A CUDA bag launches the kernel, a CPU bag runs
 ``gated_attention_pool_reference``. Nothing else falls back.
@@ -57,6 +60,25 @@ def params_from_clam(model) -> GatedPoolParams:
                            t(cls), b(cls))
 
 
+def gated_attention_pool_partial_reference(
+        bag: torch.Tensor, mask: Optional[torch.Tensor], p: GatedPoolParams
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the partial kernel: (acc [1, L], m [], l [],
+    scores [N]) with ``mask`` None meaning every row is valid. An
+    all-masked bag gives m = -1e30, l = 0 and acc = 0, as the TPU kernel
+    does."""
+    bag = bag.float()
+    h = torch.relu(bag @ p.w_f + p.b_f)
+    a = torch.tanh(h @ p.w_a + p.b_a)
+    g = torch.sigmoid(h @ p.w_b + p.b_b)
+    s = ((a * g) @ p.w_c + p.b_c)[:, 0]
+    if mask is not None:
+        s = torch.where(mask.to(torch.bool), s, torch.full_like(s, NEG_INF))
+    m = s.max()
+    e = torch.where(s > 0.5 * NEG_INF, torch.exp(s - m), torch.zeros_like(s))
+    return (e @ h)[None, :], m, e.sum(), s
+
+
 def gated_attention_pool_reference(bag: torch.Tensor, mask: torch.Tensor,
                                    p: GatedPoolParams
                                    ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -65,16 +87,21 @@ def gated_attention_pool_reference(bag: torch.Tensor, mask: torch.Tensor,
     Equals the JAX package's jnp oracle whenever one instance is valid; on
     an all-masked bag it follows the TPU kernel (bias logits), not the
     oracle's uniform softmax over padding."""
-    bag = bag.float()
-    h = torch.relu(bag @ p.w_f + p.b_f)
-    a = torch.tanh(h @ p.w_a + p.b_a)
-    g = torch.sigmoid(h @ p.w_b + p.b_b)
-    s = ((a * g) @ p.w_c + p.b_c)[:, 0]
-    s = torch.where(mask.to(torch.bool), s, torch.full_like(s, NEG_INF))
-    valid = s > 0.5 * NEG_INF
-    e = torch.where(valid, torch.exp(s - s.max()), torch.zeros_like(s))
-    pooled = (e @ h) / torch.clamp(e.sum(), min=1e-30)
-    return pooled @ p.w_cls + p.b_cls, s
+    acc, _, l, s = gated_attention_pool_partial_reference(bag, mask, p)
+    return (acc[0] / torch.clamp(l, min=1e-30)) @ p.w_cls + p.b_cls, s
+
+
+def combine_partials(acc: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
+                     p: GatedPoolParams) -> torch.Tensor:
+    """Logits [1, C] from K shards' partials (acc [K, L], m [K], l [K]),
+    the flash-attention combine of parallel/sharded_bag.py: shards rescale
+    to the global max, an all-masked shard (m = -1e30, l = 0) weighs 0 and
+    an all-masked bag gives the bias logits."""
+    gmax = m.max()
+    scale = torch.exp(m - gmax)
+    l_g = (l * scale).sum()
+    acc_g = (acc * scale[:, None]).sum(0, keepdim=True)
+    return acc_g / torch.clamp(l_g, min=1e-30) @ p.w_cls + p.b_cls
 
 
 def _lib() -> ctypes.CDLL:
@@ -84,22 +111,79 @@ def _lib() -> ctypes.CDLL:
         lib.gated_pool_forward.argtypes = (
             [vp, vp, i, i, i, i, i, i] + [vp] * 10 + [vp] * 3 + [vp])
         lib.gated_pool_forward.restype = i
-        lib.gated_pool_tile.argtypes = []
-        lib.gated_pool_tile.restype = i
+        lib.gated_pool_partial.argtypes = (
+            [vp, vp, i, i, i, i, i] + [vp] * 8 + [vp] * 4 + [vp])
+        lib.gated_pool_partial.restype = i
+        for fn in ("gated_pool_tile", "gated_pool_max_parts"):
+            getattr(lib, fn).argtypes = []
+            getattr(lib, fn).restype = i
+        lib.gated_pool_smem_bytes.argtypes = [i, i]
+        lib.gated_pool_smem_bytes.restype = i
         lib.gated_pool_error_string.argtypes = [i]
         lib.gated_pool_error_string.restype = ctypes.c_char_p
         lib._hk_bound = True
     return lib
 
 
+def _check_impl(impl: str) -> None:
+    if impl not in ("grid", "dma"):
+        raise ValueError(f"impl must be 'grid' or 'dma', got {impl!r}")
+
+
+def _launch(bag, p, n_valid, mask, partial: bool):
+    """Run the CUDA kernel: (logits [1, C], scores) or, with ``partial``,
+    (acc [1, L], m, l, scores)."""
+    n, d_in = bag.shape
+    l_dim, d_att = p.w_a.shape
+    lib = _lib()
+    if lib.gated_pool_smem_bytes(l_dim, d_att) == 0:
+        raise ValueError(f"gated_attention_pool kernel: a head of L={l_dim} "
+                         "does not fit one block's shared memory")
+    dev = bag.device
+    bag = bag.float().contiguous()
+    w = [t.detach().to(dev, torch.float32).contiguous() for t in p]
+    mask_u8 = None if mask is None else mask.to(dev, torch.uint8).contiguous()
+    if mask_u8 is not None and mask_u8.shape != (n,):
+        raise ValueError(f"mask {tuple(mask_u8.shape)} for a bag of {n}")
+    tiles = -(-n // lib.gated_pool_tile())
+    parts = min(tiles, lib.gated_pool_max_parts())
+    f32 = dict(device=dev, dtype=torch.float32)
+    scores = torch.empty(n, **f32)
+    part = torch.empty((parts, 2 + l_dim), **f32)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    head = (bag.data_ptr(), None if mask_u8 is None else mask_u8.data_ptr(),
+            0 if n_valid is None else int(n_valid), n, d_in, l_dim, d_att)
+    if partial:
+        acc = torch.empty((1, l_dim), **f32)
+        ml = torch.empty(2, **f32)
+        err = lib.gated_pool_partial(
+            *head, *[t.data_ptr() for t in w[:8]], scores.data_ptr(),
+            part.data_ptr(), acc.data_ptr(), ml.data_ptr(), stream)
+        build.check(lib, "gated_pool_error_string", err,
+                    "gated_attention_pool_partial")
+        return acc, ml[0], ml[1], scores
+    logits = torch.empty((1, w[8].shape[1]), **f32)
+    err = lib.gated_pool_forward(
+        *head, w[8].shape[1], *[t.data_ptr() for t in w], scores.data_ptr(),
+        part.data_ptr(), logits.data_ptr(), stream)
+    build.check(lib, "gated_pool_error_string", err, "gated_attention_pool")
+    return logits, scores
+
+
 def gated_attention_pool(bag: torch.Tensor, p: GatedPoolParams,
                          n_valid: Optional[int] = None,
-                         mask: Optional[torch.Tensor] = None
+                         mask: Optional[torch.Tensor] = None,
+                         tile: int = 2048, impl: str = "grid", nbuf: int = 4
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Pooled forward: (logits [1, C], raw scores [N]). bag [N, D_in];
     validity from ``mask`` [N] bool or a prefix length ``n_valid`` (both
-    data, no rebuild). The CUDA kernel takes L <= 128."""
-    n, d_in = bag.shape
+    data, no rebuild). ``tile``, ``impl`` ("grid" or "dma") and ``nbuf``
+    keep the JAX signature: the TPU's two launchers (block pipeline, DMA
+    ring) are one CUDA launch here, which sizes its own tiles, so they
+    select nothing. The kernel takes any D_in and D_att and L up to ~690
+    (its h tile lives in shared memory); a wider head raises."""
+    _check_impl(impl)
+    n = bag.shape[0]
     if n == 0:
         raise ValueError("gated_attention_pool needs a non-empty bag")
     if mask is None and n_valid is None:
@@ -109,32 +193,37 @@ def gated_attention_pool(bag: torch.Tensor, p: GatedPoolParams,
             mask = torch.arange(n) < n_valid
         logits, scores = gated_attention_pool_reference(bag, mask, p)
         return logits[None, :], scores
-    l_dim, d_att = p.w_a.shape
-    c_dim = p.w_cls.shape[1]
-    if l_dim > 128:
-        raise ValueError(f"gated_attention_pool kernel takes L <= 128, "
-                         f"got {l_dim}")
-    dev = bag.device
-    bag = bag.float().contiguous()
-    w = [t.detach().to(dev, torch.float32).contiguous() for t in p]
-    mask_u8 = None if mask is None else \
-        mask.to(dev, torch.uint8).contiguous()
-    lib = _lib()
-    tiles = -(-n // lib.gated_pool_tile())
-    scores = torch.empty(n, device=dev, dtype=torch.float32)
-    part = torch.empty((tiles, 2 + l_dim), device=dev, dtype=torch.float32)
-    logits = torch.empty((1, c_dim), device=dev, dtype=torch.float32)
-    err = lib.gated_pool_forward(
-        bag.data_ptr(), None if mask_u8 is None else mask_u8.data_ptr(),
-        0 if n_valid is None else int(n_valid), n, d_in, l_dim, d_att, c_dim,
-        *[t.data_ptr() for t in w], scores.data_ptr(), part.data_ptr(),
-        logits.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    build.check(lib, "gated_pool_error_string", err, "gated_attention_pool")
+    logits, scores = _launch(bag, p, n_valid, mask, partial=False)
     gated_attention_pool.launches += 1
     return logits, scores
 
 
 gated_attention_pool.launches = 0  # kernel launches on CUDA
+
+
+def gated_attention_pool_partial(
+        bag: torch.Tensor, p: GatedPoolParams,
+        mask: Optional[torch.Tensor] = None, tile: int = 2048,
+        impl: str = "grid", nbuf: int = 4
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Shard-local pooling partials for instance-sharded MIL
+    (parallel/sharded_bag.py): (acc [1, L] un-normalised weighted sum of h
+    at the local score max, m [] that max, l [] the local sum of weights,
+    scores [N]); ``mask`` None means every row is valid. Combine shards
+    with ``combine_partials``. ``tile``/``impl``/``nbuf`` as in
+    ``gated_attention_pool``."""
+    _check_impl(impl)
+    n = bag.shape[0]
+    if n == 0:
+        raise ValueError("gated_attention_pool_partial needs a non-empty bag")
+    if bag.device.type == "cpu":
+        return gated_attention_pool_partial_reference(bag, mask, p)
+    out = _launch(bag, p, n if mask is None else None, mask, partial=True)
+    gated_attention_pool_partial.launches += 1
+    return out
+
+
+gated_attention_pool_partial.launches = 0  # kernel launches on CUDA
 
 
 def apply_pooled(model, bag: torch.Tensor,

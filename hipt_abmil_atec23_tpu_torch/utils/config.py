@@ -1,14 +1,53 @@
-"""The configuration dataclasses the port's serving path reads.
+"""The configuration dataclasses the port reads.
 
 The port's own copy of hipt_abmil_atec23_tpu/utils/config.py, cut to the
-classes tiling, encoding, serving and bag storage need. Field names and
-defaults are the JAX package's, so one config dictionary drives both
-packages.
+classes tiling, encoding, serving, bag storage and full-bag training need.
+Field names and defaults are the JAX package's, so one config dictionary
+drives both packages.
 """
 from __future__ import annotations
 
+import dataclasses
+import json
+import typing
 from dataclasses import dataclass, field
-from typing import Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
+
+
+def load_config_dict(path: str) -> Dict[str, Any]:
+    """Read a JSON or YAML config file as a dict."""
+    with open(path) as f:
+        text = f.read()
+    if path.endswith((".yaml", ".yml")):
+        import yaml
+        d = yaml.safe_load(text)
+    else:
+        try:
+            d = json.loads(text)
+        except json.JSONDecodeError:
+            import yaml
+            d = yaml.safe_load(text)
+    if not isinstance(d, dict):
+        raise ValueError(f"config {path!r} did not parse to a mapping")
+    return d
+
+
+def _from_dict(cls, d: Dict[str, Any]):
+    # `from __future__ import annotations` stringifies field types; resolve
+    # them so nested dataclasses rebuild from nested dicts
+    hints = typing.get_type_hints(cls)
+    names = {f.name: f for f in dataclasses.fields(cls)}
+    kwargs = {}
+    for k, v in d.items():
+        if k not in names:
+            raise KeyError(f"unknown config key {k!r} for {cls.__name__}")
+        ftype = hints.get(k, names[k].type)
+        if dataclasses.is_dataclass(ftype) and isinstance(v, dict):
+            v = _from_dict(ftype, v)
+        elif isinstance(v, list) and typing.get_origin(ftype) is tuple:
+            v = tuple(v)
+        kwargs[k] = v
+    return cls(**kwargs)
 
 
 @dataclass
@@ -81,3 +120,70 @@ class BagConfig:
     use_h5: bool = False
     batch_size: int = 1        # bags per optimizer step (1 == reference-faithful)
     bucket_sizes: Tuple[int, ...] = ()  # pad-to sizes; empty => single max bucket
+
+
+@dataclass
+class TrainConfig:
+    """Optimization loop (reference: main.py flags + utils/core_utils.py:102-297)."""
+    lr: float = 1e-3
+    reg: float = 0.5            # Adam weight_decay in reference get_optim
+    opt: str = "adam"           # adam | sgd
+    max_epochs: int = 100
+    min_epochs: int = 50
+    early_stopping: bool = True
+    patience: int = 50
+    stop_epoch: int = 50
+    bag_loss: str = "ce"        # ce | balanced_ce | svm(topk)
+    bag_weight: float = 0.7
+    inst_loss: str = "ce"
+    weighted_sample: bool = True
+    seed: int = 1
+    k: int = 5
+    k_start: int = -1
+    k_end: int = -1
+    continue_training: bool = False
+    fold_parallel: bool = False  # shard folds across the device mesh
+    epoch_chunk: int = 1         # epochs fused per device dispatch
+
+
+@dataclass
+class TaskConfig:
+    """Task registry entry (reference: main.py:443-462, create_splits_seq.py:24-168)."""
+    name: str = "treatment"
+    n_classes: int = 2
+    label_dict: Dict[str, int] = field(default_factory=lambda: {"invalid": 0, "effective": 1})
+    csv_path: str = ""
+    ignore: Tuple[str, ...] = ()
+    patient_strat: bool = False
+    patient_voting: str = "max"
+
+
+@dataclass
+class ExperimentConfig:
+    exp_code: str = "exp"
+    results_dir: str = "./results"
+    split_dir: str = ""
+    data_root_dir: str = ""
+    task: TaskConfig = field(default_factory=TaskConfig)
+    bags: BagConfig = field(default_factory=BagConfig)
+    model: ModelConfig = field(default_factory=ModelConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
+    encoder: EncoderConfig = field(default_factory=EncoderConfig)
+    tile: TileConfig = field(default_factory=TileConfig)
+    log_data: bool = False
+    profile: bool = False
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), indent=2, default=str)
+
+    def save(self, path: str) -> None:
+        with open(path, "w") as f:
+            f.write(self.to_json())
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "ExperimentConfig":
+        return _from_dict(cls, d)
+
+    @classmethod
+    def load(cls, path: str) -> "ExperimentConfig":
+        return cls.from_dict(load_config_dict(path))

@@ -9,7 +9,8 @@ import numpy as np
 import pytest
 import torch
 
-from hipt_abmil_atec23_tpu_torch.models.abmil import CLAM_SB
+from hipt_abmil_atec23_tpu_torch.models.abmil import (
+    CLAM_SB, init_reference_weights)
 from hipt_abmil_atec23_tpu_torch.models.vit import Block
 from hipt_abmil_atec23_tpu_torch.ops import flash_attention as fa
 from hipt_abmil_atec23_tpu_torch.ops import fused_mlp as fm
@@ -101,6 +102,107 @@ def test_pool_kernel_prefix_length_equals_mask(cuda_device):
         bag, p, mask=torch.arange(5000, device=cuda_device) < 4321)
     for x, y in zip(a, b):
         assert torch.equal(x, y)
+
+
+def _head(size_arg, dev, seed=0):
+    """Pool weights of a CLAM head at the reference init's scale (xavier)
+    with non-zero biases."""
+    g = torch.Generator().manual_seed(seed)
+    model = init_reference_weights(CLAM_SB(size_arg, 2), g)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.Linear):
+                m.bias.copy_(torch.randn(m.bias.shape, generator=g) * 0.1)
+    return gap.params_from_clam(model.to(dev)), g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [300, 20_000])
+@pytest.mark.parametrize("size_arg", ["hipt_smaller", "tiny128", "small",
+                                      "big"])
+def test_pool_kernel_takes_every_clam_width(size_arg, n, cuda_device):
+    """L = 16, 128 and 512 (D_att up to 384): logits and scores within
+    1e-4 of the plain version, masked tail included."""
+    p, g = _head(size_arg, cuda_device)
+    bag = torch.randn(n, p.w_f.shape[0], generator=g).to(cuda_device)
+    mask = torch.arange(n, device=cuda_device) < n - 37
+    before = gap.gated_attention_pool.launches
+    logits, scores = gap.gated_attention_pool(bag, p, mask=mask)
+    ref_logits, ref_scores = gap.gated_attention_pool_reference(bag, mask, p)
+    torch.cuda.synchronize()
+    assert gap.gated_attention_pool.launches == before + 1
+    assert (logits[0] - ref_logits).abs().max().item() <= 1e-4
+    assert (scores - ref_scores).abs().max().item() <= 1e-4
+
+
+def _partial_err(got, want):
+    """max over |dm|, |dscores| and |dacc| / l, |dl| / l (acc and l are
+    sums over the bag, the pooled vector is acc / l)."""
+    acc, m, l, s = got
+    racc, rm, rl, rs = want
+    scale = max(rl.item(), 1e-30)
+    return max((m - rm).abs().item(), (s - rs).abs().max().item(),
+               (acc - racc).abs().max().item() / scale,
+               (l - rl).abs().item() / scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masking", ["tail", "none", "all"])
+@pytest.mark.parametrize("size_arg", ["hipt_smaller", "small"])
+def test_pool_partial_kernel_matches_plain(size_arg, masking, cuda_device):
+    """The partial mode against its plain version on the card within 1e-4
+    (acc and l relative to l); an all-masked shard gives m = -1e30, l = 0,
+    acc = 0."""
+    p, g = _head(size_arg, cuda_device, seed=1)
+    n = 5000
+    bag = torch.randn(n, p.w_f.shape[0], generator=g).to(cuda_device)
+    mask = {"tail": torch.arange(n, device=cuda_device) < 4000,
+            "none": None,
+            "all": torch.zeros(n, dtype=torch.bool, device=cuda_device)
+            }[masking]
+    before = gap.gated_attention_pool_partial.launches
+    got = gap.gated_attention_pool_partial(bag, p, mask=mask)
+    want = gap.gated_attention_pool_partial_reference(bag, mask, p)
+    torch.cuda.synchronize()
+    assert gap.gated_attention_pool_partial.launches == before + 1
+    assert got[0].shape == (1, p.w_f.shape[1]) and got[3].shape == (n,)
+    assert _partial_err(got, want) <= 1e-4
+    if masking == "all":
+        assert got[1].item() == torch.tensor(gap.NEG_INF).item()
+        assert got[2].item() == 0 and not got[0].any()
+
+
+@pytest.mark.cuda
+def test_combine_partials_on_card_matches_full_bag_kernel(cuda_device):
+    """Four shards through the partial kernel, one all-masked, combined
+    with combine_partials: the full-bag kernel's logits within 1e-4."""
+    p, g = _head("small", cuda_device, seed=2)
+    n = 4 * 3000
+    bag = torch.randn(n, 1024, generator=g).to(cuda_device)
+    mask = torch.rand(n, generator=g).to(cuda_device) < 0.9
+    mask[6000:9000] = False
+    parts = [gap.gated_attention_pool_partial(bag[i:i + 3000], p,
+                                              mask=mask[i:i + 3000])
+             for i in range(0, n, 3000)]
+    acc, m, l, _ = (torch.stack([q[j] for q in parts]) for j in range(4))
+    got = gap.combine_partials(acc[:, 0], m, l, p)
+    want, _ = gap.gated_attention_pool(bag, p, mask=mask)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+def test_pool_kernel_refuses_a_head_past_shared_memory(cuda_device):
+    """No quiet fallback: an h tile of L = 1024 does not fit a block."""
+    shapes = [(64, 1024), (1024,), (1024, 32), (32,), (1024, 32), (32,),
+              (32, 1), (1,), (1024, 2), (2,)]
+    p = gap.GatedPoolParams(*(torch.zeros(s, device=cuda_device)
+                              for s in shapes))
+    bag = torch.zeros(100, 64, device=cuda_device)
+    with pytest.raises(ValueError):
+        gap.gated_attention_pool(bag, p)
+    with pytest.raises(ValueError):
+        gap.gated_attention_pool_partial(bag, p)
 
 
 @pytest.fixture(scope="module")

@@ -215,8 +215,10 @@ def test_port_serve_path_imports_no_jax(served, tmp_path):
     flash_attention and fused_mlp ops) against the fused-block one on the
     same weights (f32, one region), runs the port's serve_once on the same slides
     (narrow random HIPT, the same checkpoint; the YCbCr slide rides the DCT
-    rung) and one encode_stream on the DCT rung, and ends with no jax, flax
-    or hipt_abmil_atec23_tpu module in sys.modules."""
+    rung) and one encode_stream on the DCT rung, runs the instance-sharded
+    forward (plain and fused) and one epoch of the full-bag trainer over a
+    gloo group of one (parallel/, synthetic bags from data/), and ends with
+    no jax, flax or hipt_abmil_atec23_tpu module in sys.modules."""
     _, slide_dir, ckpt, _, _, _, _, _ = served
     script = textwrap.dedent(f"""
         import dataclasses, json, sys
@@ -270,6 +272,32 @@ def test_port_serve_path_imports_no_jax(served, tmp_path):
         feats = dict(encode_stream([("ycc", slide, coords)], encoder,
                                    region_size=512, stats=stats))
         slide.close()
+        from hipt_abmil_atec23_tpu_torch.data.bags import BagDataset
+        from hipt_abmil_atec23_tpu_torch.data.synthetic import (
+            make_synthetic_bags)
+        from hipt_abmil_atec23_tpu_torch.models.abmil import build_mil_model
+        from hipt_abmil_atec23_tpu_torch.parallel.full_bag_train import (
+            train_full_bags_sharded)
+        from hipt_abmil_atec23_tpu_torch.parallel.mesh import make_mesh
+        from hipt_abmil_atec23_tpu_torch.parallel.multihost import (
+            init_multihost)
+        from hipt_abmil_atec23_tpu_torch.parallel.sharded_bag import (
+            sharded_clam_forward)
+        from hipt_abmil_atec23_tpu_torch.utils.config import ExperimentConfig
+        assert init_multihost(device="cpu") == 1
+        mesh = make_mesh([("inst", 1)], "cpu")
+        clam = build_mil_model("clam_sb", size_arg="hipt_smaller")
+        bag, mask = torch.randn(64, 192), torch.arange(64) < 50
+        with torch.no_grad():
+            a = sharded_clam_forward(clam, bag, mask, mesh)[0]
+            b = sharded_clam_forward(clam, bag, mask, mesh, use_fused=True)[0]
+        assert float((a - b).abs().max()) < 1e-5
+        man, store = make_synthetic_bags({str(tmp_path / 'bags')!r},
+                                         n_slides=4, bag_range=(20, 60))
+        ds = BagDataset(man.slide_ids, man.labels, store, None)
+        cfg = ExperimentConfig.from_dict({{"train": {{"max_epochs": 1}}}})
+        _, hist = train_full_bags_sharded(cfg, ds, ds, mesh, verbose=False)
+        assert len(hist) == 1 and np.isfinite(hist[0]["train_loss"])
         loaded = sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "jaxlib", "flax",
                                                "hipt_abmil_atec23_tpu"))
