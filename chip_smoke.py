@@ -5,16 +5,20 @@ serving path on an NVIDIA H100 through its hand-written CUDA kernels.
 
 Phases (any failure exits non-zero, and no result line is printed):
   1. device: require CUDA; print the card's name and power limit.
-  2. kernels: build the five CUDA sources from the checkout (one nvcc per
-     source, side by side, sm_90a) and hold each of the seven kernels
+  2. kernels: build the six CUDA sources from the checkout (one nvcc per
+     source, side by side, sm_90a) and hold each of the eight kernels
      against its plain PyTorch version on the card, at the main path's
      shapes, with the stated tolerance; time both, the bound of the same
      work, and the one PyTorch call that computes it where there is one.
-     The pool runs at the HIPT head (L 16) and at the reference CLAM
-     'small' head (L 512) on a [100000, 1024] slide bag; its partial mode
-     at both widths on full slide bags.
+     The block kernel also at an f32 residual. The pool runs at the HIPT
+     head (L 16) and at the reference CLAM 'small' head (L 512) on a
+     [100000, 1024] slide bag; its partial mode at both widths on full
+     slide bags.
      flash_attention is driven through attention() at a long N, where the
-     dispatcher takes its flash branch (counts zeroed before, read after).
+     dispatcher takes its flash branch; fused_network through
+     fused_vit_network on the 12 ViT-256 blocks of a seeded full-width
+     encoder and the tokens that reach its first block from two 4096^2
+     regions (each path: counts zeroed before, read after).
   3. plane slice: two in-memory 8192^2 slides (seeded H&E-like texture served
      as YCbCr 4:2:0 planes) through build_encoder (full-width HIPT_4K,
      bf16, seeded random weights, every block the fused block kernel,
@@ -76,7 +80,8 @@ from hipt_abmil_atec23_tpu_torch.engine.encode import (
     _decode_batch, build_encoder, encode_stream, probe_dct_caps)
 from hipt_abmil_atec23_tpu_torch.models.abmil import (
     build_mil_model, init_reference_weights)
-from hipt_abmil_atec23_tpu_torch.models.hipt import make_hipt_encoder
+from hipt_abmil_atec23_tpu_torch.models.hipt import (
+    hipt_eval_normalize, make_hipt_encoder)
 from hipt_abmil_atec23_tpu_torch.models.vit import Block
 from hipt_abmil_atec23_tpu_torch.ops import flash_attention as fa
 from hipt_abmil_atec23_tpu_torch.ops import fused_mlp as fm
@@ -84,6 +89,8 @@ from hipt_abmil_atec23_tpu_torch.ops import gated_attention_pool as gap
 from hipt_abmil_atec23_tpu_torch.ops import jpegdct
 from hipt_abmil_atec23_tpu_torch.ops.fused_block import (
     fused_vit_block, fused_vit_block_reference)
+from hipt_abmil_atec23_tpu_torch.ops.fused_network import (
+    fused_vit_network, fused_vit_network_reference, stack_blocks)
 from hipt_abmil_atec23_tpu_torch.slideio.reader import BaseSlide
 from hipt_abmil_atec23_tpu_torch.slideio.synthetic import (
     DctMemorySlide, he_like_planes)
@@ -98,7 +105,7 @@ POOL_TOL = 1e-4            # f32 logits and scores
 REGION = 4096
 SLIDE = 8192
 SOURCES = ("fused_block", "gated_pool", "dct_unpack", "fused_mlp",
-           "flash_attention")
+           "flash_attention", "fused_network")
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit) for bounds
 HBM_BYTES_S = 3.35e12
@@ -222,11 +229,30 @@ def _kernel_block(dev, g) -> dict:
             timed = (ms, pms, f"[{b},{n},{d}] bf16, n_valid {nv}",
                      2 * x.numel() * 2 + wbytes, flops, lib)
         del blk, x, got, want, err
+    # an f32 residual stream: bf16 operands, f32 in and out
+    gf = torch.Generator().manual_seed(5)
+    blk = _random_block(384, 6, gf, dev)
+    x = torch.randn(64, 264, 384, generator=gf).to(dev)
+    with torch.inference_mode():
+        got = fused_vit_block(x, blk, num_heads=6, n_valid=257)
+        want = fused_vit_block_reference(x, blk, num_heads=6, n_valid=257,
+                                         operand_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        if got.dtype != torch.float32:
+            raise SystemExit(f"fused_block wrote {got.dtype} for f32 x")
+        worst = max(worst, _check(
+            "fused_block", "[64,264,384] f32 x, bf16 operands, n_valid 257",
+            got, want, BLOCK_TOL))
+        f32_ms = gpu_timer(lambda: fused_vit_block(x, blk, num_heads=6,
+                                                   n_valid=257))
+    log(f"fused_block [64,264,384] f32: kernel {f32_ms:.4f} ms")
     ms, pms, shape, nbytes, flops, lib = timed
-    return record("fused_block",
-                  "hipt_abmil_atec23_tpu_torch/kernels/csrc/fused_block.cu",
-                  "hipt_abmil_atec23_tpu/ops/fused_block.py:60", worst, ms,
-                  pms, shape, nbytes, flops, BF16_FLOP_S, lib)
+    rec = record("fused_block",
+                 "hipt_abmil_atec23_tpu_torch/kernels/csrc/fused_block.cu",
+                 "hipt_abmil_atec23_tpu/ops/fused_block.py:60", worst, ms,
+                 pms, shape, nbytes, flops, BF16_FLOP_S, lib)
+    rec["f32_ms_64x264x384"] = f32_ms
+    return rec
 
 
 def _reference_clam(size_arg, seed, dev):
@@ -591,9 +617,142 @@ def _kernel_flash(dev, g):
     return rec, counts
 
 
-def phase_kernels(dev, dct_slide) -> dict:
+def _row_cosine(a, b) -> float:
+    """Least cosine between matching rows (tokens) of two tensors."""
+    a, b = a.float().flatten(0, -2), b.float().flatten(0, -2)
+    return torch.nn.functional.cosine_similarity(a, b, dim=-1).min().item()
+
+
+def _first_block_tokens(model, regions):
+    """The tokens that reach ViT-256's first block on ``regions`` (padded,
+    f32) and their valid count, caught by a forward pre-hook."""
+    seen = {}
+
+    def grab(_, args):
+        seen["tok"], seen["n_valid"] = args[0], args[1]
+
+    hook = model.vit256.blocks[0].register_forward_pre_hook(grab)
+    try:
+        with torch.inference_mode():
+            model(hipt_eval_normalize(regions))
+    finally:
+        hook.remove()
+    return seen["tok"], seen["n_valid"]
+
+
+def _network_library_ms(b, n, nv, d, heads, depth, dev) -> float:
+    """One nn.TransformerEncoder call (``depth`` pre-LN GELU layers, the
+    same widths, key padding mask): the yardstick for fused_network, timed
+    here and never called by the port."""
+    layer = torch.nn.TransformerEncoderLayer(
+        d, heads, 4 * d, dropout=0.0, activation="gelu",
+        layer_norm_eps=1e-6, batch_first=True, norm_first=True)
+    stack = torch.nn.TransformerEncoder(layer, depth,
+                                        enable_nested_tensor=False)
+    stack = stack.to(dev, torch.bfloat16).eval()
+    x = torch.randn(b, n, d, device=dev, dtype=torch.bfloat16)
+    pad = torch.arange(n, device=dev)[None, :].expand(b, n) >= nv
+    with torch.inference_mode():
+        return gpu_timer(lambda: stack(x, src_key_padding_mask=pad))
+
+
+def _kernel_network(dev, regions, g):
+    """fused_network against its plain version: the 12 ViT-256 blocks of a
+    seeded full-width encoder, stacked, on the tokens that reach its first
+    block from two 4096^2 regions ([512, 264, 384] bf16, n_valid 257).
+    That call is the kernel's path: counts are zeroed before it and read
+    after. Then three blocks at an f32 shape, and for the record the
+    encoder's own chain of 12 block-kernel calls (which rounds the residual
+    to bf16 between blocks) and one nn.TransformerEncoder call. Returns
+    the record and the path's counts."""
+    model = make_hipt_encoder(
+        torch.bfloat16, use_fused_block=True,
+        generator=torch.Generator().manual_seed(7)).to(dev).eval()
+    vit = model.vit256
+    heads, depth = vit.cfg.num_heads, vit.cfg.depth
+    tok, nv = _first_block_tokens(model, regions)
+    x = tok.to(torch.bfloat16)
+    b, n, d = x.shape
+    ws = stack_blocks(vit.blocks)
+    run = lambda: fused_vit_network(x, *ws, num_heads=heads, n_valid=nv)
+    zero_counts()
+    with torch.inference_mode():
+        got = run()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    log(f"fused_vit_network at [{b},{n},{d}] T {depth} bf16 launches: "
+        f"{counts}")
+    if counts["fused_network"] != 1:
+        raise SystemExit("fused_vit_network did not launch its kernel once")
+
+    def chain():
+        y = x
+        for blk in vit.blocks:
+            y = fused_vit_block(y, blk, num_heads=heads, n_valid=nv)
+        return y
+
+    what = f"[{b},{n},{d}] T {depth} bf16, n_valid {nv}"
+    with torch.inference_mode():
+        want = fused_vit_network_reference(x, *ws, num_heads=heads,
+                                           n_valid=nv)
+        chained = chain()
+        torch.cuda.synchronize()
+    worst = _check("fused_network", what, got, want, BLOCK_TOL)
+    cos = _row_cosine(got[:, :nv], want[:, :nv])
+    log(f"fused_network {what}: min cosine over valid rows {cos:.7f} "
+        f"(>= 0.9999)")
+    if cos < 0.9999:
+        raise SystemExit("fused_network disagrees with its plain version")
+    dch = (got.float() - chained.float()).abs()
+    cos_ch = _row_cosine(got[:, :nv], chained[:, :nv])
+    log(f"fused_network vs the chained block kernel (bf16 residual between "
+        f"blocks): max |d| {dch.max().item():.6g}, mean "
+        f"{dch.mean().item():.6g}, min cosine {cos_ch:.7f} (>= 0.999)")
+    if cos_ch < 0.999:
+        raise SystemExit("fused_network disagrees with the chained blocks")
+    xs = torch.randn(4, 24, d, generator=g).to(dev)
+    ws3 = [w[:3] for w in ws]
+    with torch.inference_mode():
+        gs = fused_vit_network(xs, *ws3, num_heads=heads, n_valid=20)
+        wsf = fused_vit_network_reference(xs, *ws3, num_heads=heads,
+                                          n_valid=20)
+        torch.cuda.synchronize()
+    if gs.dtype != torch.float32:
+        raise SystemExit(f"fused_network wrote {gs.dtype} for f32 x")
+    worst = max(worst, _check("fused_network", f"[4,24,{d}] T 3 f32, "
+                              "n_valid 20", gs, wsf, BLOCK_TOL))
+    with torch.inference_mode():
+        ms = gpu_timer(run)
+        pms = gpu_timer(lambda: fused_vit_network_reference(
+            x, *ws, num_heads=heads, n_valid=nv), iters=3)
+        chained_ms = gpu_timer(chain)
+    lib = _network_library_ms(b, n, nv, d, heads, depth, dev)
+    # bytes: x in and out in bf16, the stacked bf16 GEMM weights and f32
+    # vectors; ops: T blocks' GEMMs and attention over the valid tokens
+    nbytes = 2 * x.numel() * 2 + sum(
+        w.numel() * (2 if w.dim() == 3 else 4) for w in ws)
+    flops = depth * (2 * b * nv * d * 12 * d + 4 * b * nv * nv * d)
+    rec = record("fused_network",
+                 "hipt_abmil_atec23_tpu_torch/kernels/csrc/fused_network.cu",
+                 "hipt_abmil_atec23_tpu/ops/fused_network.py:46", worst, ms,
+                 pms, f"[{b},{n},{d}] bf16, T {depth}, n_valid {nv}",
+                 nbytes, flops, BF16_FLOP_S, lib)
+    rec.update(chained_fused_block_ms=chained_ms,
+               vs_chained_max_abs=dch.max().item(),
+               vs_chained_mean_abs=dch.mean().item())
+    log(f"fused_network {what}: kernel {ms:.4f} ms, plain {pms:.4f} ms, "
+        f"{depth} chained fused_block {chained_ms:.4f} ms, "
+        f"nn.TransformerEncoder {lib:.4f} ms, bound {rec['bound_ms']:.4f} "
+        f"ms ({rec['bound_by']})")
+    return rec, {"launches": counts,
+                 "owned": {"fused_network": counts["fused_network"]}}
+
+
+def phase_kernels(dev, dct_slide, regions) -> dict:
     """Each kernel against its plain version: the JSON records, and the
-    counts of attention() at long N, the path that owns flash_attention."""
+    results of the two paths phase 2 drives (attention() at long N, which
+    owns flash_attention, and fused_vit_network, which owns
+    fused_network). ``regions``: two 4096^2 RGB regions, uint8."""
     from hipt_abmil_atec23_tpu_torch.kernels import build
     t0 = time.perf_counter()
     build.build_all(SOURCES)
@@ -609,9 +768,14 @@ def phase_kernels(dev, dct_slide) -> dict:
                "fused_mlp": _kernel_mlp(dev, g),
                "fused_attention": _kernel_attention(dev, g)}
     records["flash_attention"], launches = _kernel_flash(dev, g)
+    paths = {"attention_long_n": {
+        "launches": launches,
+        "owned": {"flash_attention": launches["flash_attention"]}}}
     torch.cuda.empty_cache()
-    return {"records": records, "launches": launches,
-            "owned": {"flash_attention": launches["flash_attention"]}}
+    records["fused_network"], paths["network"] = _kernel_network(
+        dev, regions, g)
+    torch.cuda.empty_cache()
+    return {"records": records, "paths": paths}
 
 
 # ------------------------------------------------------------------ phase 3
@@ -677,6 +841,7 @@ def score(model, feats, dev):
 
 
 COUNTERS = {"fused_block": fused_vit_block,
+            "fused_network": fused_vit_network,
             "gated_pool": gap.gated_attention_pool,
             "gated_pool_partial": gap.gated_attention_pool_partial,
             "dct_unpack": jpegdct.dct_unpack,
@@ -1279,7 +1444,10 @@ def main() -> int:
     dct_slides = [DctMemorySlide(*p[1:]) for p in planes]
     log(f"fixtures: {len(planes)} x {SLIDE}^2 texture, planes and JPEG "
         f"coefficients in {time.perf_counter() - t0:.1f} s")
-    kres = phase_kernels(dev, dct_slides[0])
+    rgb = planes[0][0]
+    regions = torch.from_numpy(np.stack([rgb[:REGION, :REGION],
+                                         rgb[REGION:, REGION:]])).to(dev)
+    kres = phase_kernels(dev, dct_slides[0], regions)
     res = phase_slice(dev, planes)
     dres = phase_dct_slice(dev, res, dct_slides)
     pres = phase_per_op_slice(dev, res)
@@ -1289,8 +1457,8 @@ def main() -> int:
         phase_profile(dev, res["encoder"], pres["encoder"], planes[0],
                       dct_slides[0], args.profile)
     records = kres["records"]
-    set_launches(records, {"attention_long_n": kres, "plane": res,
-                           "dct": dres, "per_op": pres, "sharded": sres})
+    set_launches(records, {**kres["paths"], "plane": res, "dct": dres,
+                           "per_op": pres, "sharded": sres})
     log(f"card: {smi}")
     log(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` compiles on first use into
 ``_build/lib<name>.so`` (a directory .gitignore lists) with a direct nvcc
-call, and is rebuilt when its source is newer than the library. The
+call, and is rebuilt when its source or any ``csrc/*.cuh`` header (which
+several sources include) is newer than the library. The
 sources expose plain ``extern "C"`` launchers taking device pointers,
 shapes and the CUDA stream, so nothing links against PyTorch's headers
 and a build takes seconds. This mirrors how ``slideio/native.py`` builds
@@ -13,12 +14,13 @@ A failed build raises with nvcc's output; nothing falls back.
 from __future__ import annotations
 
 import ctypes
+import glob
 import os
 import shutil
 import subprocess
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict
+from typing import Dict, List
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_DIR, "csrc")
@@ -46,14 +48,29 @@ def nvcc_path() -> str:
     return path
 
 
+def sources(name: str, csrc: str = CSRC_DIR) -> List[str]:
+    """What lib<name>.so is built from: csrc/<name>.cu and every header in
+    csrc/ (a source may include any of them)."""
+    return [os.path.join(csrc, f"{name}.cu"),
+            *sorted(glob.glob(os.path.join(csrc, "*.cuh")))]
+
+
+def stale(so: str, deps: List[str]) -> bool:
+    """True when the library is missing or older than one of its sources."""
+    if not os.path.exists(so):
+        return True
+    built = os.path.getmtime(so)
+    return any(os.path.getmtime(p) > built for p in deps)
+
+
 def build(name: str) -> str:
     """Compile csrc/<name>.cu into _build/lib<name>.so if it is missing or
-    older than its source; returns the library path. nvcc's report
-    (registers, shared memory, spills per kernel) lands beside it in
-    lib<name>.log."""
+    older than its source or a csrc/ header; returns the library path.
+    nvcc's report (registers, shared memory, spills per kernel) lands
+    beside it in lib<name>.log."""
     src = os.path.join(CSRC_DIR, f"{name}.cu")
     so = os.path.join(BUILD_DIR, f"lib{name}.so")
-    if os.path.exists(so) and os.path.getmtime(so) >= os.path.getmtime(src):
+    if not stale(so, sources(name)):
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{so}.{os.getpid()}.tmp"

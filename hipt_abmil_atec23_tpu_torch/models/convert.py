@@ -12,7 +12,7 @@ __init__ imports flax), so the loader is ported here.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -72,6 +72,28 @@ def _blocks_from_jax(p: Mapping) -> Dict[str, torch.Tensor]:
                    block_state_dict_from_jax(p[f"block{i}"]).items()})
         i += 1
     return sd
+
+
+def stacked_blocks_from_jax(p: Mapping, prefix: str = "block"
+                            ) -> Tuple[torch.Tensor, ...]:
+    """The per-block params ``{prefix}0``, ``{prefix}1``, ... of a flax
+    VisionTransformer (the 'params' level) stacked on a leading depth axis
+    in the order and JAX layout of ops/fused_network.py ``ORDER`` (ln1_g,
+    ln1_b, wqkv [T, D, 3D], bqkv, wproj [T, D, D], bproj, ln2_g, ln2_b,
+    w1 [T, D, H], b1, w2 [T, H, D], b2), as f32 tensors."""
+    blocks = []
+    while f"{prefix}{len(blocks)}" in p:
+        blocks.append(p[f"{prefix}{len(blocks)}"])
+    leaves = lambda b: (
+        b["norm1"]["scale"], b["norm1"]["bias"],
+        b["attn"]["qkv"]["kernel"], b["attn"]["qkv"]["bias"],
+        b["attn"]["proj"]["kernel"], b["attn"]["proj"]["bias"],
+        b["norm2"]["scale"], b["norm2"]["bias"],
+        b["mlp"]["fc1"]["kernel"], b["mlp"]["fc1"]["bias"],
+        b["mlp"]["fc2"]["kernel"], b["mlp"]["fc2"]["bias"])
+    per = [leaves(b) for b in blocks]
+    return tuple(_t(np.stack([np.asarray(lv[i], np.float32) for lv in per]))
+                 for i in range(12))
 
 
 def vit256_state_dict_from_jax(p: Mapping) -> Dict[str, torch.Tensor]:

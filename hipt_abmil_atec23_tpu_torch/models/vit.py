@@ -178,9 +178,16 @@ class Block(nn.Module):
     def forward(self, x: torch.Tensor, n_valid: Optional[int] = None
                 ) -> torch.Tensor:
         if self.use_fused_block:
-            fn = fused_vit_block_reference if self.plain else fused_vit_block
-            return fn(x.to(self.dtype), self, num_heads=self.num_heads,
-                      n_valid=n_valid, eps=self.eps)
+            x = x.to(self.dtype)
+            if not self.plain:
+                return fused_vit_block(x, self, num_heads=self.num_heads,
+                                       n_valid=n_valid, eps=self.eps)
+            # what fused_vit_block computes on this device: bf16 operands
+            # on the card at any residual dtype, the exact block on the CPU
+            return fused_vit_block_reference(
+                x, self, num_heads=self.num_heads, n_valid=n_valid,
+                eps=self.eps,
+                operand_dtype=torch.bfloat16 if x.is_cuda else None)
         x = x + self.attn(_ln_f32(x, self.norm1), plain=self.plain)
         if not self.use_fused_mlp:
             return x + self.mlp(_ln_f32(x, self.norm2), plain=self.plain)

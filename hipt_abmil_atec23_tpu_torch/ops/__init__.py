@@ -1,2 +1,2 @@
-"""Numerical ops of the port: DCT decode, fused ViT block, gated-attention
-pooling, YCbCr decode and bag masking."""
+"""Numerical ops of the port: DCT decode, fused ViT block and block stack,
+gated-attention pooling, YCbCr decode and bag masking."""

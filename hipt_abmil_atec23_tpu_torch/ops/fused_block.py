@@ -11,14 +11,18 @@ probabilities and head outputs round to bf16, x2 = x + attn stays f32, the
 MLP hidden rounds to bf16, the output to the residual dtype.
 
 Dispatch is by the tensor's device: a CUDA tensor launches the kernel (bf16
-residual stream, D <= 384 and a multiple of 32, head size 32 or 64), a CPU
-tensor runs ``fused_vit_block_reference``. Nothing else falls back: a build
-or launch failure raises.
+or f32 residual stream, D <= 384 and a multiple of 32, head size 32 or 64),
+a CPU tensor runs ``fused_vit_block_reference``. Nothing else falls back: a
+build or launch failure raises.
+
+An f32 residual on the card keeps bf16 GEMM operands, as the TPU kernel
+does; on the CPU it runs the exact f32 block, as the JAX package's CPU path
+does (ROADMAP.md section C).
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -29,32 +33,40 @@ NEG_INF = -1e30
 _SMEM_LIMIT = 232448  # bytes of shared memory one block may use on sm_90
 
 
-def _ln(x: torch.Tensor, norm, eps: float) -> torch.Tensor:
+def _ln(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
+        eps: float) -> torch.Tensor:
     mu = x.mean(-1, keepdim=True)
     var = (x - mu).square().mean(-1, keepdim=True)
-    return (x - mu) * torch.rsqrt(var + eps) * norm.weight.float() \
-        + norm.bias.float()
+    return (x - mu) * torch.rsqrt(var + eps) * g.float() + b.float()
 
 
-def fused_vit_block_reference(x: torch.Tensor, blk, *, num_heads: int,
-                              n_valid: Optional[int] = None,
-                              eps: float = 1e-6) -> torch.Tensor:
-    """Plain PyTorch version of the kernel. Operands round to x's dtype
-    (the compute dtype) and multiply in f32, exactly where the kernel
-    rounds: with bf16 x this is the kernel's arithmetic, with f32 x the
-    exact f32 block. x: [B, n_pad, D]; blk: a models.vit.Block."""
-    b, n_pad, d = x.shape
-    cdt = x.dtype
+def block_params(blk) -> list:
+    """A models.vit.Block's parameters in the kernels' order (torch
+    layouts): ln1 g, b; qkv W [3D, D], b; proj W, b; ln2 g, b; fc1 W
+    [H, D], b; fc2 W [D, H], b."""
+    return [blk.norm1.weight, blk.norm1.bias,
+            blk.attn.qkv.weight, blk.attn.qkv.bias,
+            blk.attn.proj.weight, blk.attn.proj.bias,
+            blk.norm2.weight, blk.norm2.bias,
+            blk.mlp.fc1.weight, blk.mlp.fc1.bias,
+            blk.mlp.fc2.weight, blk.mlp.fc2.bias]
+
+
+def block_f32(xf: torch.Tensor, prm: Sequence[torch.Tensor], *,
+              num_heads: int, n_valid: int, eps: float,
+              cdt: torch.dtype) -> torch.Tensor:
+    """One block on an f32 residual ``xf`` [B, n_pad, D] with the
+    parameters of ``block_params``; GEMM operands round to ``cdt`` and
+    multiply in f32. Returns the f32 residual after the block."""
+    ln1_g, ln1_b, wqkv, bqkv, wproj, bproj, ln2_g, ln2_b, w1, b1, w2, b2 = prm
+    b, n_pad, d = xf.shape
     hd = d // num_heads
-    n_valid = n_pad if n_valid is None else n_valid
 
-    def mm(a, lin):  # a [..., K] . W^T + b, W in torch Linear [out, in]
-        return a.to(cdt).float() @ lin.weight.to(cdt).float().t() \
-            + lin.bias.float()
+    def mm(a, w, bias):  # a [..., K] . W^T + b, W in torch Linear [out, in]
+        return a.to(cdt).float() @ w.to(cdt).float().t() + bias.float()
 
-    xf = x.float()
-    xn = _ln(xf, blk.norm1, eps).to(cdt)
-    qkv = mm(xn, blk.attn.qkv).view(b, n_pad, 3, num_heads, hd)
+    xn = _ln(xf, ln1_g, ln1_b, eps).to(cdt)
+    qkv = mm(xn, wqkv, bqkv).view(b, n_pad, 3, num_heads, hd)
     qkv = qkv.permute(2, 0, 3, 1, 4)                    # [3, B, H, n, hd]
     q = (qkv[0] * hd ** -0.5).to(cdt).float()
     k = qkv[1].to(cdt).float()
@@ -65,10 +77,27 @@ def fused_vit_block_reference(x: torch.Tensor, blk, *, num_heads: int,
     e = torch.exp(s - s.amax(-1, keepdim=True))
     p = (e / e.sum(-1, keepdim=True)).to(cdt).float()
     o = (p @ v).to(cdt).permute(0, 2, 1, 3).reshape(b, n_pad, d)
-    x2 = xf + mm(o, blk.attn.proj)
-    xn2 = _ln(x2, blk.norm2, eps).to(cdt)
-    h1 = F.gelu(mm(xn2, blk.mlp.fc1)).to(cdt)
-    return (x2 + mm(h1, blk.mlp.fc2)).to(x.dtype)
+    x2 = xf + mm(o, wproj, bproj)
+    xn2 = _ln(x2, ln2_g, ln2_b, eps).to(cdt)
+    h1 = F.gelu(mm(xn2, w1, b1)).to(cdt)
+    return x2 + mm(h1, w2, b2)
+
+
+def fused_vit_block_reference(x: torch.Tensor, blk, *, num_heads: int,
+                              n_valid: Optional[int] = None,
+                              eps: float = 1e-6,
+                              operand_dtype: Optional[torch.dtype] = None
+                              ) -> torch.Tensor:
+    """Plain PyTorch version of the kernel on x's residual dtype: operands
+    round to ``operand_dtype`` (default x's dtype) and multiply in f32,
+    exactly where the kernel rounds; the output has x's dtype. bf16 x, or
+    ``operand_dtype=torch.bfloat16`` with any x, is the kernel's
+    arithmetic; f32 x by default the exact f32 block. x: [B, n_pad, D];
+    blk: a models.vit.Block."""
+    cdt = x.dtype if operand_dtype is None else operand_dtype
+    n_valid = x.shape[1] if n_valid is None else n_valid
+    return block_f32(x.float(), block_params(blk), num_heads=num_heads,
+                     n_valid=n_valid, eps=eps, cdt=cdt).to(x.dtype)
 
 
 def _lib() -> ctypes.CDLL:
@@ -76,7 +105,7 @@ def _lib() -> ctypes.CDLL:
     if not getattr(lib, "_hk_bound", False):
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.fused_block_forward.argtypes = (
-            [p] * 19 + [i] * 6 + [ctypes.c_float, ctypes.c_float, p])
+            [p] * 19 + [i] * 7 + [ctypes.c_float, ctypes.c_float, p])
         lib.fused_block_forward.restype = i
         lib.fused_block_attention_smem.argtypes = [i, i]
         lib.fused_block_attention_smem.restype = ctypes.c_size_t
@@ -91,12 +120,7 @@ def _kernel_weights(blk, dev: torch.device) -> list:
     f32 LayerNorm parameters and biases, on ``dev``), cast once and kept on
     the block until a parameter changes (a load_state_dict bumps its
     version) or moves."""
-    prms = [blk.norm1.weight, blk.norm1.bias,
-            blk.attn.qkv.weight, blk.attn.qkv.bias,
-            blk.attn.proj.weight, blk.attn.proj.bias,
-            blk.norm2.weight, blk.norm2.bias,
-            blk.mlp.fc1.weight, blk.mlp.fc1.bias,
-            blk.mlp.fc2.weight, blk.mlp.fc2.bias]
+    prms = block_params(blk)
     stamp = (dev, tuple((t._version, t.data_ptr()) for t in prms))
     hit = getattr(blk, "_kernel_weights", None)
     if hit is None or hit[0] != stamp:
@@ -110,8 +134,9 @@ def fused_vit_block(x: torch.Tensor, blk, *, num_heads: int,
                     n_valid: Optional[int] = None,
                     eps: float = 1e-6) -> torch.Tensor:
     """Whole block: the CUDA kernel on a CUDA tensor, the plain version on a
-    CPU tensor. x: [B, n_pad, D] with n_pad % 8 == 0 (pad once per network
-    and pass n_valid, so padded keys are masked)."""
+    CPU tensor. x: [B, n_pad, D], bf16 or f32 (the output's dtype), with
+    n_pad % 8 == 0 (pad once per network and pass n_valid, so padded keys
+    are masked)."""
     if x.device.type == "cpu":
         return fused_vit_block_reference(x, blk, num_heads=num_heads,
                                          n_valid=n_valid, eps=eps)
@@ -119,9 +144,9 @@ def fused_vit_block(x: torch.Tensor, blk, *, num_heads: int,
     hd = d // num_heads
     hidden = blk.mlp.fc1.weight.shape[0]
     n_valid = n_pad if n_valid is None else n_valid
-    if x.dtype != torch.bfloat16:
-        raise ValueError(f"fused_vit_block kernel takes a bf16 residual "
-                         f"stream, got {x.dtype}")
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"fused_vit_block kernel takes a bf16 or f32 "
+                         f"residual stream, got {x.dtype}")
     if (d % num_heads or hd not in (32, 64) or d % 32 or d > 384
             or hidden % 32 or n_pad % 8 or not 0 < n_valid <= n_pad
             or b > 65535):
@@ -149,7 +174,8 @@ def fused_vit_block(x: torch.Tensor, blk, *, num_heads: int,
     stream = torch.cuda.current_stream(dev).cuda_stream
     ptrs = [t.data_ptr() for t in [x, *wts, xn, qkv, attn, x2, hid, out]]
     err = lib.fused_block_forward(*ptrs, b, n_pad, d, num_heads, n_valid,
-                                  hidden, eps, hd ** -0.5, stream)
+                                  hidden, int(x.dtype == torch.float32), eps,
+                                  hd ** -0.5, stream)
     build.check(lib, "fused_block_error_string", err, "fused_vit_block")
     fused_vit_block.launches += 1
     return out

@@ -17,7 +17,7 @@ from hipt_abmil_atec23_tpu_torch.models.convert import (
     block_state_dict_from_jax)
 from hipt_abmil_atec23_tpu_torch.models.vit import Block
 from hipt_abmil_atec23_tpu_torch.ops.fused_block import (
-    _kernel_weights, fused_vit_block)
+    _kernel_weights, fused_vit_block, fused_vit_block_reference)
 
 
 def _interpret(fn, *args, **kwargs):
@@ -68,6 +68,27 @@ def test_plain_block_matches_pallas_kernel(b, n, d, heads, dtype, rng):
     np.testing.assert_allclose(got.float().numpy()[:, :n],
                                np.asarray(want, np.float32)[:, :n],
                                rtol=5e-2, atol=3e-2)
+
+
+@pytest.mark.parametrize("b,n,d,heads", [(2, 16, 64, 2), (3, 9, 96, 3)])
+def test_plain_block_bf16_operands_match_pallas_kernel_at_f32(b, n, d, heads,
+                                                              rng):
+    """f32 x with bf16 operands, as the CUDA kernel computes an f32 residual
+    stream: the Pallas kernel's arithmetic at f32 x (it reads x as f32 and
+    rounds only the GEMM operands), within f32 summation order (atol 1e-4;
+    the exact f32 block is 5e-2 away at these shapes)."""
+    params, blk = _block_pair(d, heads, rng)
+    x, xp = _inputs(b, n, d, rng)
+    fused = JaxBlock(num_heads=heads, mlp_ratio=4.0, qkv_bias=True,
+                     ln_eps=1e-6, dtype=jnp.float32, use_fused_block=True)
+    want, _ = _interpret(fused.apply, params, jnp.asarray(xp), n_valid=n)
+    with torch.inference_mode():
+        got = fused_vit_block_reference(torch.from_numpy(xp), blk,
+                                        num_heads=heads, n_valid=n,
+                                        operand_dtype=torch.bfloat16)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy()[:, :n],
+                               np.asarray(want)[:, :n], rtol=0, atol=1e-4)
 
 
 @pytest.mark.parametrize("b,n,d,heads", [(2, 16, 64, 2), (3, 9, 96, 3)])

@@ -11,9 +11,10 @@ import torch
 
 from hipt_abmil_atec23_tpu_torch.models.abmil import (
     CLAM_SB, init_reference_weights)
-from hipt_abmil_atec23_tpu_torch.models.vit import Block
+from hipt_abmil_atec23_tpu_torch.models.vit import Block, init_dino_
 from hipt_abmil_atec23_tpu_torch.ops import flash_attention as fa
 from hipt_abmil_atec23_tpu_torch.ops import fused_mlp as fm
+from hipt_abmil_atec23_tpu_torch.ops import fused_network as fnw
 from hipt_abmil_atec23_tpu_torch.ops import gated_attention_pool as gap
 from hipt_abmil_atec23_tpu_torch.ops.fused_block import (
     fused_vit_block, fused_vit_block_reference)
@@ -56,13 +57,124 @@ def test_block_kernel_matches_plain(b, n, nv, d, heads, cuda_device):
 
 @pytest.mark.cuda
 def test_block_kernel_refuses_what_it_does_not_take(cuda_device):
-    """No quiet fallback: f32 I/O, head size 96 and odd token counts raise."""
+    """No quiet fallback: head size 96 and odd token counts raise."""
     blk = Block(192, 2, 4.0, 1e-6).to(cuda_device)
     x = torch.zeros(1, 16, 192, device=cuda_device)
     with pytest.raises(ValueError):
-        fused_vit_block(x, blk, num_heads=2)            # f32, hd 96
+        fused_vit_block(x, blk, num_heads=2)            # hd 96
     with pytest.raises(ValueError):
         fused_vit_block(x[:, :9].bfloat16(), blk, num_heads=6)  # n_pad 9
+
+
+def _random_blocks(depth, d, heads, g, dev):
+    blocks = [Block(d, heads, 4.0, 1e-6) for _ in range(depth)]
+    with torch.no_grad():
+        for blk in blocks:
+            for p in blk.parameters():
+                p.add_(torch.randn(p.shape, generator=g) * 0.05)
+    return [blk.to(dev) for blk in blocks]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,nv,d,heads", [(3, 16, 9, 96, 3),
+                                            (4, 264, 257, 384, 6)])
+def test_block_kernel_takes_an_f32_residual(b, n, nv, d, heads, cuda_device):
+    """f32 x: the kernel reads the f32 residual, rounds the GEMM operands
+    to bf16 and writes f32, so it matches the plain version with bf16
+    operands within the bf16 bound of the bf16 test."""
+    g = torch.Generator().manual_seed(1)
+    blk = _random_blocks(1, d, heads, g, cuda_device)[0]
+    x = torch.randn(b, n, d, generator=g).to(cuda_device)
+    before = fused_vit_block.launches
+    with torch.inference_mode():
+        got = fused_vit_block(x, blk, num_heads=heads, n_valid=nv)
+        want = fused_vit_block_reference(x, blk, num_heads=heads,
+                                         n_valid=nv,
+                                         operand_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert fused_vit_block.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == x.shape
+    assert _within(got, want, 3e-2, 5e-2)
+
+
+@pytest.mark.cuda
+def test_f32_encoder_encodes_a_region_on_the_card(cuda_device):
+    """build_encoder at f32 runs every block through the block kernel (12
+    ViT-256 and 6 ViT-4K calls per batch) and gives finite features."""
+    from hipt_abmil_atec23_tpu_torch.engine.encode import build_encoder
+    from hipt_abmil_atec23_tpu_torch.utils.config import EncoderConfig
+    enc = build_encoder(EncoderConfig(dtype="float32", batch_size=1),
+                        device="cuda")
+    g = torch.Generator().manual_seed(2)
+    region = torch.randint(0, 256, (1, 4096, 4096, 3), generator=g,
+                           dtype=torch.uint8).to(cuda_device)
+    before = fused_vit_block.launches
+    feats = enc.apply(region)
+    torch.cuda.synchronize()
+    assert fused_vit_block.launches == before + 18
+    assert feats.shape == (1, 192) and bool(torch.isfinite(feats).all())
+
+
+def _dino_blocks(depth, d, heads, g, dev):
+    """Blocks at DINO's init scale (init_dino_: weights of std 0.02) with
+    LayerNorm parameters and biases moved off 1 and 0 by 0.02 std."""
+    blocks = [init_dino_(Block(d, heads, 4.0, 1e-6), g)
+              for _ in range(depth)]
+    with torch.no_grad():
+        for blk in blocks:
+            for p in blk.parameters():
+                if p.dim() == 1:
+                    p.add_(torch.randn(p.shape, generator=g) * 0.02)
+    return [blk.to(dev) for blk in blocks]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,n,nv,d,heads,depth", [
+    (4, 24, 20, 384, 6, 3), (2, 264, 257, 192, 6, 2),
+    (2, 264, 257, 384, 6, 12)])
+def test_network_kernel_matches_plain(b, n, nv, d, heads, depth, dtype,
+                                      cuda_device):
+    """One cooperative launch runs all T blocks: against the plain version
+    (bf16 operands, f32 residual, one rounding at the end) within
+    3e-2 + 5e-2 |plain|; one launch counted per call. Weights at DINO's
+    init scale, as the encoder's: with _random_blocks' (std ~0.06) twelve
+    384-wide blocks amplify a 1e-6 relative change of the residual per
+    block past this bound in the plain version itself."""
+    g = torch.Generator().manual_seed(3)
+    ws = fnw.stack_blocks(_dino_blocks(depth, d, heads, g, cuda_device))
+    x = torch.randn(b, n, d, generator=g).to(cuda_device, dtype)
+    before = fnw.fused_vit_network.launches
+    with torch.inference_mode():
+        got = fnw.fused_vit_network(x, *ws, num_heads=heads, n_valid=nv,
+                                    group=1)
+        want = fnw.fused_vit_network_reference(x, *ws, num_heads=heads,
+                                               n_valid=nv)
+    torch.cuda.synchronize()
+    assert fnw.fused_vit_network.launches == before + 1
+    assert got.dtype == dtype and got.shape == x.shape
+    assert _within(got, want, 3e-2, 5e-2)
+
+
+@pytest.mark.cuda
+def test_network_kernel_refuses_what_it_does_not_take(cuda_device):
+    """Head size 96 and an n_pad of 9 raise ValueError; a grid larger than
+    the co-resident CTAs fails the cooperative launch with an error (never
+    a hang), and the next call runs."""
+    g = torch.Generator().manual_seed(4)
+    ws = fnw.stack_blocks(_random_blocks(1, 192, 2, g, cuda_device))
+    x = torch.zeros(1, 16, 192, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        fnw.fused_vit_network(x, *ws, num_heads=2, group=1)       # hd 96
+    with pytest.raises(ValueError):
+        fnw.fused_vit_network(x[:, :9], *ws, num_heads=6, group=1)  # n_pad 9
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        fnw._launch(x, ws, num_heads=6, n_valid=16, eps=1e-6,
+                    grid=9 * sms)  # 256-thread CTAs: at most 8 per SM
+    out = fnw.fused_vit_network(x, *ws, num_heads=6, group=1)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out).all())
 
 
 @pytest.mark.cuda

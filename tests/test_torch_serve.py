@@ -213,7 +213,8 @@ def test_port_serve_path_imports_no_jax(served, tmp_path):
     """A fresh interpreter imports the port's serve, encode and jpegdct
     modules and chip_smoke, runs the per-op kernel configuration (the
     flash_attention and fused_mlp ops) against the fused-block one on the
-    same weights (f32, one region), runs the port's serve_once on the same slides
+    same weights (f32, one region) and the whole-network op on its ViT-256
+    blocks, runs the port's serve_once on the same slides
     (narrow random HIPT, the same checkpoint; the YCbCr slide rides the DCT
     rung) and one encode_stream on the DCT rung, runs the instance-sharded
     forward (plain and fused) and one epoch of the full-bag trainer over a
@@ -254,6 +255,15 @@ def test_port_serve_path_imports_no_jax(served, tmp_path):
             per_op_feats = per_op(x)
             fused_feats = model(x)
         assert float((per_op_feats - fused_feats).abs().max()) < 1e-4
+        # the whole-network op on the same ViT-256 blocks, its plain version
+        from hipt_abmil_atec23_tpu_torch.ops.fused_network import (
+            fused_vit_network, stack_blocks)
+        tok = torch.from_numpy(np.random.default_rng(1).normal(
+            size=(2, 16, 64)).astype(np.float32))
+        with torch.inference_mode():
+            net = fused_vit_network(tok, *stack_blocks(model.vit256.blocks),
+                                    num_heads=2, n_valid=13)
+        assert net.shape == tok.shape and bool(torch.isfinite(net).all())
         enc = EncoderConfig(batch_size=8, dtype="float32")
         cfg = ServeConfig(
             slide_dir={str(slide_dir)!r}, out_dir={str(tmp_path / 'o')!r},
