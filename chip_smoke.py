@@ -57,6 +57,7 @@ Phases (any failure exits non-zero, and no result line is printed):
      PATH.per_op.
 
     python3 chip_smoke.py --profile chiprun_out/profile.txt
+    PYTHONPATH=<tree>:. python3 chip_smoke.py --block-bench   # B.1, B.8 only
 
 The line before the last is a JSON object with one record per kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -67,6 +68,7 @@ import argparse
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -656,6 +658,59 @@ def _network_library_ms(b, n, nv, d, heads, depth, dev) -> float:
         return gpu_timer(lambda: stack(x, src_key_padding_mask=pad))
 
 
+# B.8's stages between grid barriers, in a block's order
+STAGE_KINDS = ("LN1", "QKV", "attention", "PROJ", "LN2", "FC1", "FC2")
+
+
+def stage_split(clock, depth: int) -> dict:
+    """B.8's ms per stage kind summed over the blocks, from one clocked
+    launch's stamps (CTA 0's %globaltimer, ns: the start, then arrival and
+    departure at each grid barrier). A stage runs from the last departure
+    to CTA 0's arrival; "barriers" is CTA 0's wait at the barriers, which
+    holds the barrier itself and any CTA that finished its share later
+    (also split by the stage before it, "wait after")."""
+    c = [int(v) for v in clock]
+    kinds = list(STAGE_KINDS) * depth
+    if len(c) != 1 + 2 * len(kinds):
+        raise ValueError(f"{len(c)} stamps for {depth} blocks")
+    out = dict.fromkeys([*STAGE_KINDS, "barriers"], 0.0)
+    wait = dict.fromkeys(STAGE_KINDS, 0.0)
+    for i, kind in enumerate(kinds):
+        arrive, leave = c[1 + 2 * i], c[2 + 2 * i]
+        out[kind] += (arrive - c[2 * i]) * 1e-6
+        wait[kind] += (leave - arrive) * 1e-6
+    out["barriers"] = sum(wait.values())
+    out["total"] = (c[-1] - c[0]) * 1e-6
+    out["wait after"] = wait
+    return out
+
+
+def _network_stage_split(x, ws, heads, nv, depth, runs: int = 3) -> dict:
+    """The mean of ``runs`` clocked launches' stage splits (launches made to
+    measure, not counted)."""
+    from hipt_abmil_atec23_tpu_torch.ops import fused_network as fnw
+    clock = torch.zeros(fnw.clock_len(depth), dtype=torch.int64,
+                        device=x.device)
+    splits = []
+    with torch.inference_mode():
+        for _ in range(runs):
+            fnw._launch(x, ws, num_heads=heads, n_valid=nv, eps=1e-6,
+                        clock=clock)
+            torch.cuda.synchronize()
+            splits.append(stage_split(clock.cpu().tolist(), depth))
+    mean = {k: sum(sp[k] for sp in splits) / runs for k in splits[0]
+            if k != "wait after"}
+    mean["wait after"] = {k: sum(sp["wait after"][k] for sp in splits) / runs
+                          for k in splits[0]["wait after"]}
+    log("fused_network stage split, ms summed over the "
+        f"{depth} blocks (mean of {runs} clocked launches): " +
+        ", ".join(f"{k} {v:.4f}" for k, v in mean.items()
+                  if k != "wait after") +
+        "; barrier wait after " +
+        ", ".join(f"{k} {v:.4f}" for k, v in mean["wait after"].items()))
+    return mean
+
+
 def _kernel_network(dev, regions, g):
     """fused_network against its plain version: the 12 ViT-256 blocks of a
     seeded full-width encoder, stacked, on the tokens that reach its first
@@ -685,8 +740,7 @@ def _kernel_network(dev, regions, g):
     if counts["fused_network"] != 1:
         raise SystemExit("fused_vit_network did not launch its kernel once")
 
-    def chain():
-        y = x
+    def chain(y=x):
         for blk in vit.blocks:
             y = fused_vit_block(y, blk, num_heads=heads, n_valid=nv)
         return y
@@ -726,6 +780,9 @@ def _kernel_network(dev, regions, g):
         pms = gpu_timer(lambda: fused_vit_network_reference(
             x, *ws, num_heads=heads, n_valid=nv), iters=3)
         chained_ms = gpu_timer(chain)
+        # the same chain on an f32 residual, which B.8 keeps across blocks
+        xf = x.float()
+        chained_f32_ms = gpu_timer(lambda: chain(xf))
     lib = _network_library_ms(b, n, nv, d, heads, depth, dev)
     # bytes: x in and out in bf16, the stacked bf16 GEMM weights and f32
     # vectors; ops: T blocks' GEMMs and attention over the valid tokens
@@ -738,14 +795,52 @@ def _kernel_network(dev, regions, g):
                  pms, f"[{b},{n},{d}] bf16, T {depth}, n_valid {nv}",
                  nbytes, flops, BF16_FLOP_S, lib)
     rec.update(chained_fused_block_ms=chained_ms,
+               chained_fused_block_f32_ms=chained_f32_ms,
                vs_chained_max_abs=dch.max().item(),
-               vs_chained_mean_abs=dch.mean().item())
+               vs_chained_mean_abs=dch.mean().item(),
+               stage_ms=_network_stage_split(x, ws, heads, nv, depth))
     log(f"fused_network {what}: kernel {ms:.4f} ms, plain {pms:.4f} ms, "
-        f"{depth} chained fused_block {chained_ms:.4f} ms, "
+        f"{depth} chained fused_block {chained_ms:.4f} ms (on an f32 "
+        f"residual {chained_f32_ms:.4f} ms), "
         f"nn.TransformerEncoder {lib:.4f} ms, bound {rec['bound_ms']:.4f} "
         f"ms ({rec['bound_by']})")
     return rec, {"launches": counts,
                  "owned": {"fused_network": counts["fused_network"]}}
+
+
+def _kernel_label(mangled: str) -> str:
+    """gemm_kernel<3>, network_kernel<bf16,64>, ... from a mangled name."""
+    m = re.search(r"(layernorm_kernel|gemm_kernel|attention_kernel|"
+                  r"network_kernel)I(.*?)EE", mangled)
+    if not m:
+        return mangled
+    args = ["bf16" if a.startswith("13") else "f32" if a == "f" else a[2:]
+            for a in re.findall(r"13__nv_bfloat16|Li\d+|f", m.group(2))]
+    return f"{m.group(1)}<{','.join(args)}>"
+
+
+def build_report(build, name: str) -> None:
+    """What nvcc -Xptxas -v said of each kernel of lib<name>.so (registers,
+    shared memory, spills) and, where cuobjdump is present, how many HGMMA
+    (wgmma) instructions its SASS holds."""
+    label = None
+    with open(os.path.join(build.BUILD_DIR, f"lib{name}.log")) as f:
+        for line in f:
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                label = _kernel_label(m.group(1))
+            elif label and ("spill" in line or "Used" in line):
+                log(f"ptxas {name} {label}: {line.split(':')[-1].strip()}")
+    cob = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    if os.path.exists(cob):
+        sass = subprocess.run(
+            [cob, "-sass", os.path.join(build.BUILD_DIR, f"lib{name}.so")],
+            capture_output=True, text=True, timeout=120).stdout
+        log(f"SASS lib{name}.so: "
+            f"{sum('HGMMA' in l for l in sass.splitlines())} HGMMA "
+            "instructions")
+    else:
+        log(f"SASS lib{name}.so: no cuobjdump at {cob}")
 
 
 def phase_kernels(dev, dct_slide, regions) -> dict:
@@ -760,6 +855,8 @@ def phase_kernels(dev, dct_slide, regions) -> dict:
         build.load(name)
     log(f"kernels built in {time.perf_counter() - t0:.1f} s "
         f"({build.BUILD_DIR})")
+    for name in ("fused_block", "fused_network"):
+        build_report(build, name)
     g = torch.Generator().manual_seed(0)
     records = {"fused_block": _kernel_block(dev, g),
                "gated_pool": _kernel_pool(dev, g),
@@ -1415,6 +1512,64 @@ def phase_profile(dev, encoder, per_op_encoder, planes, dct_slide, path, *,
                     "per-op")
 
 
+# ------------------------------------------------------------ --block-bench
+def phase_block_bench(dev) -> None:
+    """B.1 and B.8 alone, for comparing two versions of their tiles in one
+    call (run once per tree, PYTHONPATH=<tree>:.): B.1 at [512,264,384] bf16
+    (three timings and a torch.profiler table of its launches) and at
+    [64,264,384] f32; B.8 on ViT-256's 12 seeded blocks at [512,264,384]
+    beside 12 chained B.1 launches on a bf16 and an f32 residual, and its
+    stage split."""
+    from torch.profiler import ProfilerActivity, profile
+    g = torch.Generator().manual_seed(0)
+    b, n, nv, d, h = 512, 264, 257, 384, 6
+    blk = _random_block(d, h, g, dev)
+    x = torch.randn(b, n, d, generator=g).to(dev, torch.bfloat16)
+    f = lambda: fused_vit_block(x, blk, num_heads=h, n_valid=nv)
+    with torch.inference_mode():
+        got = f().float()
+        want = fused_vit_block_reference(x, blk, num_heads=h,
+                                         n_valid=nv).float()
+        err = (got - want).abs()
+        ok = bool((err <= BLOCK_TOL[0] + BLOCK_TOL[1] * want.abs()).all())
+        ms = [gpu_timer(f, iters=20) for _ in range(3)]
+        log(f"B.1 [{b},{n},{d}] bf16: max_abs_err {err.max().item():.6g} "
+            f"within bound {ok}; ms {ms}")
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                f()
+            torch.cuda.synchronize()
+        log(prof.key_averages().table(sort_by="cuda_time_total",
+                                      row_limit=9, max_name_column_width=50))
+        xf = torch.randn(64, n, d, generator=g).to(dev)
+        f32_ms = gpu_timer(
+            lambda: fused_vit_block(xf, blk, num_heads=h, n_valid=nv), 20)
+        log(f"B.1 [64,{n},{d}] f32: ms {f32_ms}")
+    vit = make_hipt_encoder(torch.bfloat16, use_fused_block=True,
+                            generator=torch.Generator().manual_seed(7)
+                            ).vit256.to(dev).eval()
+    ws = stack_blocks(vit.blocks)
+    xt = (torch.randn(b, n, d, generator=g) * 0.5).to(dev, torch.bfloat16)
+    run = lambda: fused_vit_network(xt, *ws, num_heads=h, n_valid=nv)
+
+    def chain(y=xt):
+        for bk in vit.blocks:
+            y = fused_vit_block(y, bk, num_heads=h, n_valid=nv)
+        return y
+
+    with torch.inference_mode():
+        got = run()
+        want = fused_vit_network_reference(xt, *ws, num_heads=h, n_valid=nv)
+        log(f"B.8: max_abs_err "
+            f"{(got.float() - want.float()).abs().max().item():.6g}, min "
+            f"row cosine {_row_cosine(got[:, :nv], want[:, :nv]):.7f}")
+        for _ in range(2):
+            log(f"B.8 ms {gpu_timer(run, 5):.4f}, 12 chained B.1 ms "
+                f"{gpu_timer(chain, 5):.4f}, on an f32 residual "
+                f"{gpu_timer(lambda: chain(xt.float()), 5):.4f}")
+    _network_stage_split(xt, ws, h, nv, vit.cfg.depth)
+
+
 def set_launches(records, paths) -> None:
     """Each record's launches from the run of the path that owns its kernel
     (``paths``: name -> a phase's result, whose "owned" holds the counts
@@ -1434,11 +1589,17 @@ def main() -> int:
                     help="also profile one slide's encode_stream (phase 8) "
                          "and write the kernel tables to PATH and "
                          "PATH.per_op")
+    ap.add_argument("--block-bench", action="store_true",
+                    help="time only the block (B.1) and network (B.8) "
+                         "kernels and exit, printing no result line")
     args = ap.parse_args()
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in f32
     torch.backends.cudnn.allow_tf32 = False
     smi = phase_device()
     dev = require_cuda()
+    if args.block_bench:
+        phase_block_bench(dev)
+        return 0
     t0 = time.perf_counter()
     planes = [he_like_planes(10 + i, SLIDE) for i in range(2)]
     dct_slides = [DctMemorySlide(*p[1:]) for p in planes]

@@ -10,8 +10,8 @@
 //   layernorm   x (bf16 or f32)   -> xn  = bf16(LN1(x))
 //   gemm<QKV>   xn . Wqkv^T + b   -> q = bf16(q_f32 * hd^-1/2), k, v bf16,
 //                                    head-major [3, B, H, n_pad, hd]
-//   attention   per (image, head, 64-query tile): K and V in shared memory,
-//               f32 scores, keys >= n_valid at -1e30, f32 softmax,
+//   attention   per (image, head): K and V in shared memory once, f32
+//               scores, keys >= n_valid at -1e30, f32 softmax,
 //               P = bf16(e / sum e), O = P . V in f32 -> bf16 [B, n_pad, D]
 //   gemm<PROJ>  x2 = (x + O . Wproj^T) + bproj, kept in f32 (never rounded)
 //   layernorm   xn2 = bf16(LN2(x2))
@@ -27,13 +27,13 @@
 // uses the exact erff (the TPU kernel uses Abramowitz-Stegun 7.1.26 only
 // because Mosaic lacks erf).
 //
-// Every product is a WMMA bf16 16x16x16 fragment with f32 accumulation.
 // Bound on this card: the four GEMMs are ~90% of the block's FLOPs and are
-// tensor-core bound; this first version stages tiles through shared memory
-// synchronously (no cp.async/TMA, no wgmma), so it runs well below the
-// card's bf16 peak. Attention holds one head's K and V (n_pad x hd bf16) in
-// shared memory and never materialises more than a 64 x n_pad f32 score tile
-// per CTA.
+// tensor-core bound, so they run on wgmma fed by a TMA copy ring (one
+// producer warp, two consumer warpgroups, 3 stages of 128 x 64 tiles, ~97
+// KB: two CTAs per SM, so one CTA's epilogue overlaps the other's
+// products). Attention loads each head's K and V once (n_pad x hd bf16,
+// ~92 KB with padding at 264 tokens and hd 64: two CTAs per SM) and keeps
+// its scores in mma.sync registers.
 #include "vit_block.cuh"
 
 using namespace vit;
@@ -53,32 +53,43 @@ layernorm_kernel(const TIn* __restrict__ x, const float* __restrict__ g,
                      nullptr);
 }
 
+// one CTA per 128 x 128 tile
 template <int EPI>
-__global__ void __launch_bounds__(GEMM_THREADS)
-gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W, int M,
-            int N, int K, EpiArgs ep) {
+__global__ void __launch_bounds__(GEMM_THREADS, 2)
+gemm_kernel(const __grid_constant__ CUtensorMap amap,
+            const __grid_constant__ CUtensorMap wmap, int M, int N, int K,
+            EpiArgs ep) {
+  __shared__ __align__(8) uint64_t bars[2 * GEMM_STAGES];
+  __shared__ int slots[GEMM_STAGES];
   extern __shared__ __align__(128) unsigned char smem[];
-  gemm_tile<EPI>(A, W, M, N, K, ep, blockIdx.y * BM, blockIdx.x * BN, smem);
+  Ring ring = ring_init(bars, slots);
+  gemm_tiles<EPI>(&amap, &wmap, 0, M, N, K, ep, align1024(smem), ring,
+                  Sched{(int)blockIdx.x, (int)gridDim.x, nullptr});
 }
 
 template <int HD>
-__global__ void __launch_bounds__(ATT_WARPS * 32)
+__global__ void __launch_bounds__(GEMM_THREADS, 2)
 attention_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
-                 int B, int H, int n_pad, int n_valid, int nk) {
+                 int B, int H, int n_pad, int n_valid) {
   extern __shared__ __align__(128) unsigned char smem[];
-  attention_tile<HD>(qkv, out, B, H, n_pad, n_valid, nk, blockIdx.x * ATT_QT,
-                     blockIdx.y, blockIdx.z, smem);
+  attention_head<HD>(qkv, out, B, H, n_pad, n_valid, blockIdx.x, blockIdx.y,
+                     smem);
 }
 
+// C = A[M, K] . W[N, K]^T, one CTA per 128 x 128 tile
 template <int EPI>
 cudaError_t launch_gemm(const bf16* A, const bf16* W, int M, int N, int K,
                         const EpiArgs& ep, cudaStream_t s) {
+  CUtensorMap amap, wmap;
+  if (!tile_map(&amap, A, K, M, 1) || !tile_map(&wmap, W, K, N, 1))
+    return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       gemm_kernel<EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)GEMM_SMEM);
   if (err != cudaSuccess) return err;
-  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  gemm_kernel<EPI><<<grid, GEMM_THREADS, GEMM_SMEM, s>>>(A, W, M, N, K, ep);
+  const int tiles = (M + BM - 1) / BM * ((N + BN - 1) / BN);
+  gemm_kernel<EPI><<<tiles, GEMM_THREADS, GEMM_SMEM, s>>>(amap, wmap, M, N,
+                                                          K, ep);
   return cudaGetLastError();
 }
 
@@ -94,15 +105,13 @@ cudaError_t launch_layernorm(const TIn* x, const float* g, const float* b,
 template <int HD>
 cudaError_t launch_attention(const bf16* qkv, bf16* out, int B, int H,
                              int n_pad, int n_valid, cudaStream_t s) {
-  const int nk = att_nk(n_pad);
-  const size_t smem = att_layout(nk, HD).total;
+  const size_t smem = att_smem(n_pad, HD);
   cudaError_t err = cudaFuncSetAttribute(
       attention_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((n_pad + ATT_QT - 1) / ATT_QT, H, B);
-  attention_kernel<HD><<<grid, ATT_WARPS * 32, smem, s>>>(qkv, out, B, H,
-                                                         n_pad, n_valid, nk);
+  attention_kernel<HD><<<dim3(H, B), GEMM_THREADS, smem, s>>>(
+      qkv, out, B, H, n_pad, n_valid);
   return cudaGetLastError();
 }
 
@@ -113,7 +122,7 @@ extern "C" {
 // shared memory the attention launch needs at this token count, so the
 // caller can refuse shapes past the card's 227 KB per block
 size_t fused_block_attention_smem(int n_pad, int hd) {
-  return att_layout(att_nk(n_pad), hd).total;
+  return att_smem(n_pad, hd);
 }
 
 const char* fused_block_error_string(int err) {
@@ -124,7 +133,8 @@ const char* fused_block_error_string(int err) {
 // Linear weights bf16 in torch [out, in] layout; LayerNorm parameters and
 // biases f32. Scratch (caller-allocated): xn [M, D] bf16,
 // qkv [3, B, H, n_pad, hd] bf16, attn [M, D] bf16, x2 [M, D] f32,
-// hidden [M, F] bf16; scale = hd^-1/2. Returns the first CUDA error.
+// hidden [M, F] bf16; scale = hd^-1/2. Returns the first CUDA error
+// (cudaErrorInvalidValue also when the driver refuses a TMA map).
 int fused_block_forward(const void* x, const float* ln1_g, const float* ln1_b,
                         const bf16* wqkv, const float* bqkv, const bf16* wproj,
                         const float* bproj, const float* ln2_g,
@@ -142,6 +152,7 @@ int fused_block_forward(const void* x, const float* ln1_g, const float* ln1_b,
     if (err != cudaSuccess) return (int)err; \
   } while (0)
 
+  if (hd != 64 && hd != 32) return (int)cudaErrorInvalidValue;
   if (x_f32)
     HK_CHECK(launch_layernorm<float>(static_cast<const float*>(x), ln1_g,
                                      ln1_b, xn, M, D, eps, s));
@@ -158,13 +169,10 @@ int fused_block_forward(const void* x, const float* ln1_g, const float* ln1_b,
   ep.dim = D;
   ep.scale = scale;
   HK_CHECK(launch_gemm<EPI_QKV>(xn, wqkv, M, 3 * D, D, ep, s));
-  if (hd == 64) {
+  if (hd == 64)
     HK_CHECK(launch_attention<64>(qkv, attn, B, heads, n_pad, n_valid, s));
-  } else if (hd == 32) {
+  else
     HK_CHECK(launch_attention<32>(qkv, attn, B, heads, n_pad, n_valid, s));
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
   ep = EpiArgs{};
   ep.bias = bproj;
   if (x_f32)

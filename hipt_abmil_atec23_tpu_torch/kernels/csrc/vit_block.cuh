@@ -1,42 +1,57 @@
-// Device code of one pre-norm ViT block, shared by the per-block kernels
-// (fused_block.cu, seven launches per block) and the whole-network kernel
-// (fused_network.cu, every block of the stack in one cooperative launch).
+// Device code of one pre-norm ViT block for Hopper (sm_90a), shared by the
+// per-block kernels (fused_block.cu, seven launches per block) and the
+// whole-network kernel (fused_network.cu, every block of the stack in one
+// cooperative launch).
 //
 // Each piece is written for one CTA's share of a stage, so the per-block
-// kernels call it once per CTA (tile from blockIdx) and the persistent
-// kernel calls it in grid-stride loops:
+// kernels call it once per CTA and the persistent kernel calls it in
+// grid-stride loops:
 //
 //   layernorm_row   one warp, one row: y = bf16(LN(x)), f32 statistics;
 //                   optionally copies the row to an f32 buffer
-//   gemm_tile       256 threads, one 128 x 128 tile of A . W^T (W in torch
-//                   Linear [out, in] layout) with one of four epilogues:
+//   gemm_tiles      GEMM_THREADS threads walk 128 x 128 tiles of A . W^T
+//                   (W in torch Linear [out, in] layout, optionally one
+//                   slice of a [T, N, K] stack) with one of four epilogues:
 //                   QKV (bias; q scaled in f32 before its bf16 store,
 //                   head-major [3, B, H, n_pad, hd]), PROJ (x2 = (x + acc)
 //                   + b in f32, x bf16 or f32), FC1 (bf16(GELU_erf(acc +
 //                   b))), FC2 ((x2 + acc) + b, stored bf16 or f32)
-//   attention_tile  one (image, head, 64-query tile): K and V in shared
-//                   memory, f32 scores, keys >= n_valid at -1e30, f32
-//                   softmax, P = bf16(e / sum e), O = P . V in f32 -> bf16
-//                   [B, n_pad, D]. Warps 0-3 compute; the CTA's other
-//                   warps only help load K, V and Q.
+//   attention_head  one (image, head): K and V copied into shared memory
+//                   once; every warp takes 16-query tiles in turn; f32
+//                   scores in registers, keys >= n_valid at -1e30, two
+//                   passes over 64-key chunks (f32 row max and sum, then
+//                   P = bf16(e / sum e) and O += P . V in f32) -> bf16
+//                   [B, n_pad, D]; e = exp2(s log2(e) - max s log2(e)) on
+//                   the special-function unit, 1 / sum e once per row
 //
-// Every product is a WMMA bf16 16x16x16 fragment with f32 accumulation.
-// Pointers carry no __restrict__ here: in the persistent kernel the same
-// buffers are written in one stage and read in the next, so no load may go
-// through the read-only (non-coherent) cache.
+// The GEMM is warp-specialised. One producer warp copies 128 x 64 bf16
+// tiles of A and W with TMA into a ring of GEMM_STAGES stages (128-byte
+// swizzle, the layout wgmma reads), each guarded by a "full" and an
+// "empty" mbarrier. Two consumer warpgroups each run wgmma m64n128k16 (bf16
+// in, f32 accumulate in registers) on 64 rows of the tile and store the
+// epilogue straight from the accumulators as bf16x2 / float2 pairs. TMA
+// fills rows past M or N and columns past K with zeros, which covers every
+// ragged edge (M = B * n_pad, N = 288 at D = 96, K = 96). Attention runs on
+// mma.sync m16n8k16 with ldmatrix fragments from a padded K/V layout (row
+// stride hd + 8: conflict-free).
+//
+// Pointers carry no __restrict__: in the persistent kernel the same buffers
+// are written in one stage and read in the next, so no load may go through
+// the read-only (non-coherent) cache.
 #pragma once
 
+#include <cuda.h>  // CUtensorMap (the type only; nothing links libcuda)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
+#include <dlfcn.h>
 #include <stdint.h>
 
 namespace vit {
 
-using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
 constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
 
 // ---------------------------------------------------------------- layernorm
 constexpr int LN_MAX_PER_LANE = 12;  // D <= 384
@@ -50,8 +65,9 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// one warp: yr = bf16((xr - mean) * rsqrt(var + eps) * g + b), f32 math;
-// with ``copy`` set the row is also stored there as f32
+// one warp, one row: yr = bf16((xr - mean) * rsqrt(var + eps) * g + b),
+// f32 statistics; with ``copy`` set the row is also stored there as f32.
+// ``xr`` may point into shared memory.
 template <typename TIn>
 __device__ __forceinline__ void layernorm_row(const TIn* xr, const float* g,
                                               const float* b, bf16* yr, int D,
@@ -83,17 +99,246 @@ __device__ __forceinline__ void layernorm_row(const TIn* xr, const float* g,
   }
 }
 
+// one warp, two f32 rows (r0, and r1 unless it is >= M) with 16-byte loads
+// and 8-byte stores: the same arithmetic as layernorm_row, with twice the
+// bytes in flight per warp
+__device__ __forceinline__ void layernorm_rows2_f32(const float* x,
+                                                    const float* g,
+                                                    const float* b, bf16* y,
+                                                    int D, float eps, int r0,
+                                                    int r1, int M) {
+  constexpr int V = LN_MAX_PER_LANE / 4;  // float4 per lane at D <= 384
+  const int lane = threadIdx.x & 31;
+  float4 v[2][V];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int m = r ? r1 : r0;
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      const int c = 4 * (lane + 32 * i);
+      v[r][i] = m < M && c < D
+                    ? *reinterpret_cast<const float4*>(x + (size_t)m * D + c)
+                    : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int m = r ? r1 : r0;
+    if (m >= M) continue;
+    float s = 0.f;
+#pragma unroll
+    for (int i = 0; i < V; ++i) s += (v[r][i].x + v[r][i].y) + (v[r][i].z + v[r][i].w);
+    const float mu = warp_sum(s) / D;
+    float q = 0.f;
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      if (4 * (lane + 32 * i) < D) {
+        const float a0 = v[r][i].x - mu, a1 = v[r][i].y - mu;
+        const float a2 = v[r][i].z - mu, a3 = v[r][i].w - mu;
+        q += a0 * a0 + a1 * a1 + a2 * a2 + a3 * a3;
+      }
+    }
+    const float rstd = rsqrtf(warp_sum(q) / D + eps);
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      const int c = 4 * (lane + 32 * i);
+      if (c < D) {
+        const float4 gg = *reinterpret_cast<const float4*>(g + c);
+        const float4 bb = *reinterpret_cast<const float4*>(b + c);
+        __nv_bfloat162 lo = __floats2bfloat162_rn(
+            (v[r][i].x - mu) * rstd * gg.x + bb.x,
+            (v[r][i].y - mu) * rstd * gg.y + bb.y);
+        __nv_bfloat162 hi = __floats2bfloat162_rn(
+            (v[r][i].z - mu) * rstd * gg.z + bb.z,
+            (v[r][i].w - mu) * rstd * gg.w + bb.w);
+        uint2 pk;
+        pk.x = *reinterpret_cast<uint32_t*>(&lo);
+        pk.y = *reinterpret_cast<uint32_t*>(&hi);
+        *reinterpret_cast<uint2*>(y + (size_t)m * D + c) = pk;
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------- PTX
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// spin until the phase of parity ``parity`` has completed; a wait that
+// never ends (a copy that never lands) traps, so the launch fails with an
+// error instead of hanging the card
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0, tries = 0;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (++tries == (1u << 30)) __trap();
+  } while (!done);
+}
+
+// 3-D TMA tile load (coordinates innermost first), completing on ``bar``
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(smem_u32(bar))
+      : "memory");
+}
+
+// order this thread's earlier generic-proxy shared-memory accesses before
+// later async-proxy ones (TMA writes into memory another stage used)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// 16-byte cp.async; zero-fills the destination when ``valid`` is false
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+__device__ __forceinline__ unsigned long long globaltimer() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
 // ---------------------------------------------------------------- GEMM
-// C[M, N] = A[M, K] . W[N, K]^T, 128 x 128 CTA tile, 8 warps as 2 x 4, each
-// warp 64 x 32 = 4 x 2 WMMA fragments. K is a multiple of BK.
-constexpr int BM = 128, BN = 128, BK = 32;
-constexpr int GEMM_THREADS = 256;
-constexpr int SK = BK + 8;   // bf16 row stride of the A and W tiles
-constexpr int SC = BN + 4;   // f32 row stride of the staged C tile
-constexpr size_t GEMM_SMEM =
-    (size_t)BM * SC * sizeof(float) > (size_t)2 * BM * SK * sizeof(bf16)
-        ? (size_t)BM * SC * sizeof(float)
-        : (size_t)2 * BM * SK * sizeof(bf16);
+// C[M, N] = A[M, K] . W[N, K]^T on 128 x 128 tiles, K in steps of 64
+constexpr int BM = 128, BN = 128, BK = 64;
+constexpr int GEMM_STAGES = 3;
+constexpr int GEMM_CONSUMERS = 2;                    // warpgroups, 64 rows
+constexpr int GEMM_THREADS = 128 * GEMM_CONSUMERS + 32;  // + producer warp
+constexpr int PRODUCER_WARP = 4 * GEMM_CONSUMERS;
+constexpr uint32_t TILE_BYTES = BM * BK * sizeof(bf16);  // 16 KB, = BN rows
+constexpr uint32_t STAGE_BYTES = 2 * TILE_BYTES;         // A and W tiles
+// the ring, plus slack to align the dynamic base to the 1024 bytes the
+// 128-byte swizzle pattern repeats over
+constexpr size_t GEMM_SMEM = (size_t)GEMM_STAGES * STAGE_BYTES + 1024;
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
+}
+
+// The copy ring's barriers, the tile each stage holds, and this thread's
+// count of stages through it. Producer and consumers walk the same stages,
+// so their counts agree at every GEMM boundary and the ring carries over
+// from one GEMM to the next.
+struct Ring {
+  uint64_t* full;   // [GEMM_STAGES]: the TMA bytes of a stage landed
+  uint64_t* empty;  // [GEMM_STAGES]: every consumer warp is done with it
+  int* tile;        // [GEMM_STAGES]: its tile, or -1: no more tiles
+  uint32_t it;
+};
+
+// thread 0 initialises the barriers; all threads must call it.
+// ``bars``: 2 GEMM_STAGES, ``slots``: GEMM_STAGES, both in shared memory.
+__device__ __forceinline__ Ring ring_init(uint64_t* bars, int* slots) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < GEMM_STAGES; ++s) {
+      mbar_init(&bars[s], 1);
+      mbar_init(&bars[GEMM_STAGES + s], 4 * GEMM_CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  return Ring{bars, bars + GEMM_STAGES, slots, 0u};
+}
+
+// Which units of a GEMM's tiles a CTA takes: first, first + step, ... or,
+// with a counter, whatever atomicAdd(counter, 1) hands out, so CTAs that
+// run ahead take more.
+struct Sched {
+  int first, step;
+  int* counter;
+};
+
+// wgmma shared-memory descriptor of a K-major tile with 128-byte swizzle:
+// rows of 128 bytes, 8-row groups 1024 bytes apart
+__device__ __forceinline__ uint64_t smem_desc(const void* p) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// d[64 x 128] += A[64 x 16] . B[128 x 16]^T, both K-major in shared memory
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
+                                                 uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
 
 enum Epi { EPI_QKV = 0, EPI_PROJ = 1, EPI_FC1 = 2, EPI_FC2 = 3 };
 
@@ -108,256 +353,417 @@ struct EpiArgs {
   bf16* out_bf16;          // EPI_FC1: h; EPI_FC2: out when bf16
 };
 
+__device__ __forceinline__ float gelu_erf(float v) {
+  return v * 0.5f * (1.f + erff(v * 0.70710678118654752f));
+}
+
+__device__ __forceinline__ void store_pair(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// The accumulators of one consumer thread: rows r0 and r0 + 8, columns
+// n0 + 8 j + 2 (lane % 4) and the next (d[4j..4j+1] on row r0, d[4j+2..4j+3]
+// on row r0 + 8). N is even, so a pair never straddles the edge.
 template <int EPI>
-__device__ __forceinline__ void epilogue(const EpiArgs& ep, int m, int n,
-                                         int N, float acc) {
-  const size_t idx = (size_t)m * N + n;
+__device__ __forceinline__ void store_tile(const EpiArgs& ep,
+                                           const float (&d)[64], int M,
+                                           int N, int r0, int n0) {
+  const int cq = 2 * (threadIdx.x & 3);
+  size_t qrow[2] = {0, 0};  // QKV: token offset of each row in its head
   if (EPI == EPI_QKV) {
-    float v = acc + ep.bias[n];
-    const int which = n / ep.dim;
-    const int rem = n - which * ep.dim;
-    const int h = rem / ep.hd;
-    const int d = rem - h * ep.hd;
-    const int b = m / ep.n_pad;
-    const int t = m - b * ep.n_pad;
-    if (which == 0) v *= ep.scale;  // q scaled in f32 before the bf16 store
-    ep.qkv[((((size_t)which * ep.batch + b) * ep.heads + h) * ep.n_pad + t) *
-               ep.hd + d] = __float2bfloat16(v);
-  } else if (EPI == EPI_PROJ) {
-    const float res = ep.res_bf16 ? __bfloat162float(ep.res_bf16[idx])
-                                  : ep.res_f32[idx];
-    ep.out_f32[idx] = (res + acc) + ep.bias[n];
-  } else if (EPI == EPI_FC1) {
-    const float v = acc + ep.bias[n];
-    ep.out_bf16[idx] =
-        __float2bfloat16(v * 0.5f * (1.f + erff(v * 0.70710678118654752f)));
-  } else {
-    const float v = (ep.res_f32[idx] + acc) + ep.bias[n];
-    if (ep.out_bf16)
-      ep.out_bf16[idx] = __float2bfloat16(v);
-    else
-      ep.out_f32[idx] = v;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = r0 + 8 * h;
+      const int b = m / ep.n_pad;
+      qrow[h] = (size_t)b * ep.heads * ep.n_pad * ep.hd +
+                (size_t)(m - b * ep.n_pad) * ep.hd;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int n = n0 + 8 * j + cq;
+    if (n >= N) break;
+    const float2 bias = *reinterpret_cast<const float2*>(ep.bias + n);
+    size_t qcol = 0;
+    bool is_q = false;
+    if (EPI == EPI_QKV) {  // which of q, k, v; head; lane of the head
+      const int which = n / ep.dim;
+      const int rem = n - which * ep.dim;
+      const int h = rem / ep.hd;
+      qcol = (size_t)which * ep.batch * ep.heads * ep.n_pad * ep.hd +
+             (size_t)h * ep.n_pad * ep.hd + (rem - h * ep.hd);
+      is_q = which == 0;
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = r0 + 8 * h;
+      if (m >= M) continue;
+      const float a0 = d[4 * j + 2 * h], a1 = d[4 * j + 2 * h + 1];
+      const size_t idx = (size_t)m * N + n;
+      if (EPI == EPI_QKV) {
+        float v0 = a0 + bias.x, v1 = a1 + bias.y;
+        if (is_q) {  // q scaled in f32 before the bf16 store
+          v0 *= ep.scale;
+          v1 *= ep.scale;
+        }
+        store_pair(ep.qkv + qrow[h] + qcol, v0, v1);
+      } else if (EPI == EPI_PROJ) {
+        float2 r;
+        if (ep.res_bf16)
+          r = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(ep.res_bf16 + idx));
+        else
+          r = *reinterpret_cast<const float2*>(ep.res_f32 + idx);
+        *reinterpret_cast<float2*>(ep.out_f32 + idx) =
+            make_float2((r.x + a0) + bias.x, (r.y + a1) + bias.y);
+      } else if (EPI == EPI_FC1) {
+        store_pair(ep.out_bf16 + idx, gelu_erf(a0 + bias.x),
+                   gelu_erf(a1 + bias.y));
+      } else {
+        const float2 r = *reinterpret_cast<const float2*>(ep.res_f32 + idx);
+        const float v0 = (r.x + a0) + bias.x, v1 = (r.y + a1) + bias.y;
+        if (ep.out_bf16)
+          store_pair(ep.out_bf16 + idx, v0, v1);
+        else
+          *reinterpret_cast<float2*>(ep.out_f32 + idx) = make_float2(v0, v1);
+      }
+    }
   }
 }
 
-// one 128 x 128 output tile at (m0, n0); needs GEMM_THREADS threads and
-// GEMM_SMEM bytes of dynamic shared memory
+// The 128 x 128 tiles of C = A . W[t]^T (tile = m-block * n-blocks +
+// n-block), taken as ``sched`` says. ``amap``: A [M, K] bf16 as a [1, M, K]
+// TMA map; ``wmap``: W [T, N, K] bf16; boxes 64 x 128. The producer tells
+// the consumers each stage's tile through the ring, and ends the GEMM with
+// one stage of tile -1. All GEMM_THREADS threads call it; ``tiles`` is the
+// 1024-aligned ring.
 template <int EPI>
-__device__ __forceinline__ void gemm_tile(const bf16* A, const bf16* W, int M,
-                                          int N, int K, const EpiArgs& ep,
-                                          int m0, int n0,
-                                          unsigned char* smem) {
-  bf16* As = reinterpret_cast<bf16*>(smem);   // [BM][SK]
-  bf16* Ws = As + BM * SK;                    // [BN][SK]
-  float* Cs = reinterpret_cast<float*>(smem); // [BM][SC], after the K loop
-
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][2];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    // 128 rows x 32 bf16 = 512 16-byte vectors per tile, 2 per thread;
-    // rows past M or N load zeros
-    for (int v = tid; v < BM * (BK / 8); v += GEMM_THREADS) {
-      const int r = v / (BK / 8), c = (v % (BK / 8)) * 8;
-      uint4 a = make_uint4(0, 0, 0, 0), w = make_uint4(0, 0, 0, 0);
-      if (m0 + r < M)
-        a = *reinterpret_cast<const uint4*>(A + (size_t)(m0 + r) * K + k0 + c);
-      if (n0 + r < N)
-        w = *reinterpret_cast<const uint4*>(W + (size_t)(n0 + r) * K + k0 + c);
-      *reinterpret_cast<uint4*>(As + r * SK + c) = a;
-      *reinterpret_cast<uint4*>(Ws + r * SK + c) = w;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[4];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb[2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        wmma::load_matrix_sync(fa[i], As + (wm + 16 * i) * SK + kk, SK);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(fb[j], Ws + (wn + 16 * j) * SK + kk, SK);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(Cs + (wm + 16 * i) * SC + wn + 16 * j,
-                              acc[i][j], SC, wmma::mem_row_major);
+__device__ __forceinline__ void gemm_tiles(const CUtensorMap* amap,
+                                           const CUtensorMap* wmap, int t,
+                                           int M, int N, int K,
+                                           const EpiArgs& ep,
+                                           unsigned char* tiles, Ring& ring,
+                                           Sched sched) {
+  const int tn = (N + BN - 1) / BN;
+  const int n_tiles = (M + BM - 1) / BM * tn;
+  const int ksteps = (K + BK - 1) / BK;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // shared memory another stage wrote is about to take TMA writes
+  fence_proxy_async();
   __syncthreads();
-  for (int e = tid; e < BM * BN; e += GEMM_THREADS) {
-    const int r = e / BN, c = e % BN;
-    const int m = m0 + r, n = n0 + c;
-    if (m < M && n < N) epilogue<EPI>(ep, m, n, N, Cs[r * SC + c]);
+  if (warp == PRODUCER_WARP) {
+    if (lane == 0) {
+      for (int i = 0;; ++i) {
+        int tile = sched.counter ? atomicAdd(sched.counter, 1)
+                                 : sched.first + i * sched.step;
+        const bool done = tile >= n_tiles;
+        if (done) tile = -1;
+        const int m0 = (tile / tn) * BM, n0 = (tile % tn) * BN;
+        for (int k = 0; k < (done ? 1 : ksteps); ++k, ++ring.it) {
+          const int s = ring.it % GEMM_STAGES;
+          const uint32_t ph = (ring.it / GEMM_STAGES) & 1;
+          mbar_wait(&ring.empty[s], ph ^ 1);  // first round passes
+          ring.tile[s] = tile;
+          if (done) {
+            mbar_arrive(&ring.full[s]);
+            break;
+          }
+          mbar_expect_tx(&ring.full[s], STAGE_BYTES);
+          unsigned char* st = tiles + s * STAGE_BYTES;
+          tma_load_3d(st, amap, &ring.full[s], k * BK, m0, 0);
+          tma_load_3d(st + TILE_BYTES, wmap, &ring.full[s], k * BK, n0, t);
+        }
+        if (done) {
+          ++ring.it;
+          break;
+        }
+      }
+    }
+    __syncwarp();
+    return;
   }
+  const int wg = warp >> 2;  // consumer warpgroup: rows wg * 64 of a tile
+  float d[64];
+  for (;;) {
+    int s = ring.it % GEMM_STAGES;
+    mbar_wait(&ring.full[s], (ring.it / GEMM_STAGES) & 1);
+    const int tile = ring.tile[s];
+    if (tile < 0) {
+      if (lane == 0) mbar_arrive(&ring.empty[s]);
+      ++ring.it;
+      break;
+    }
+    const int m0 = (tile / tn) * BM, n0 = (tile % tn) * BN;
+#pragma unroll
+    for (int i = 0; i < 64; ++i) d[i] = 0.f;
+    int prev = -1;
+    for (int k = 0; k < ksteps; ++k, ++ring.it) {
+      s = ring.it % GEMM_STAGES;
+      if (k > 0) mbar_wait(&ring.full[s], (ring.it / GEMM_STAGES) & 1);
+      unsigned char* st = tiles + s * STAGE_BYTES;
+      const uint64_t da = smem_desc(st + wg * 64 * 128);
+      const uint64_t db = smem_desc(st + TILE_BYTES);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)  // 32 bytes along K per step
+        wgmma_m64n128k16(d, da + 2 * kk, db + 2 * kk);
+      wgmma_commit();
+      // keep this step's products in flight; the previous step's are done
+      wgmma_wait<1>();
+      if (prev >= 0 && lane == 0) mbar_arrive(&ring.empty[prev]);
+      prev = s;
+    }
+    wgmma_wait<0>();
+    if (lane == 0) mbar_arrive(&ring.empty[prev]);
+    store_tile<EPI>(ep, d, M, N, m0 + wg * 64 + (warp & 3) * 16 + (lane >> 2),
+                    n0);
+  }
+}
+
+// ---------------------------------------------------------------- host
+// cuTensorMapEncodeTiled from the driver the CUDA runtime already loaded,
+// so the library needs no link against libcuda and no runtime-version
+// specific entry-point query
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+inline EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (!fn) {
+    void* lib = dlopen("libcuda.so.1", RTLD_LAZY | RTLD_NOLOAD);
+    if (!lib) lib = dlopen("libcuda.so.1", RTLD_LAZY);
+    if (lib)
+      fn = reinterpret_cast<EncodeTiledFn>(
+          dlsym(lib, "cuTensorMapEncodeTiled"));
+  }
+  return fn;
+}
+
+// A bf16 tensor [depth, rows, cols] (cols contiguous) as a TMA map whose
+// boxes are the GEMM's 64-column x 128-row tiles of one depth slice, with
+// the 128-byte swizzle wgmma reads and zeros outside the tensor. False when
+// the driver refuses it.
+inline bool tile_map(CUtensorMap* map, const void* ptr, int cols, int rows,
+                     int depth) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (!fn) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows,
+                              (cuuint64_t)depth};
+  const cuuint64_t strides[2] = {(cuuint64_t)cols * sizeof(bf16),
+                                 (cuuint64_t)cols * rows * sizeof(bf16)};
+  const cuuint32_t box[3] = {BK, BM, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
+            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // ---------------------------------------------------------------- attention
-constexpr int ATT_WARPS = 4;          // 16 query rows each
-constexpr int ATT_QT = 16 * ATT_WARPS;
-
-__host__ __device__ inline size_t align128(size_t b) {
-  return (b + 127) / 128 * 128;
+// K and V rows held in shared memory: n_pad rounded up to the 64-key chunk
+__host__ __device__ inline int att_rows(int n_pad) {
+  return (n_pad + 63) / 64 * 64;
 }
 
-struct AttLayout {
-  size_t k, v, q, s, p, total;
-};
-
-// f32 floats per warp for the score tile [16][nk+4], which is reused for
-// the O tile [16][hd+4]
-__host__ __device__ inline size_t att_s_warp(int nk, int hd) {
-  return align128((size_t)16 * (nk > hd ? nk + 4 : hd + 4) * sizeof(float));
+// dynamic shared memory of attention_head: K and V [att_rows][hd + 8] bf16
+__host__ __device__ inline size_t att_smem(int n_pad, int hd) {
+  return 2 * (size_t)att_rows(n_pad) * (hd + 8) * sizeof(bf16);
 }
 
-// shared-memory carve-up for one CTA: K, V [nk][hd+8] bf16, Q [64][hd+8]
-// bf16, per-warp scores (and O) f32 and probabilities [16][nk+8] bf16
-__host__ __device__ inline AttLayout att_layout(int nk, int hd) {
-  AttLayout L;
-  const size_t kv = align128((size_t)nk * (hd + 8) * sizeof(bf16));
-  L.k = 0;
-  L.v = kv;
-  L.q = 2 * kv;
-  L.s = L.q + align128((size_t)ATT_QT * (hd + 8) * sizeof(bf16));
-  L.p = L.s + ATT_WARPS * att_s_warp(nk, hd);
-  const size_t p_warp = align128((size_t)16 * (nk + 8) * sizeof(bf16));
-  L.total = L.p + ATT_WARPS * p_warp;
-  return L;
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
 }
 
-// keys padded to a multiple of 16
-__host__ __device__ inline int att_nk(int n_pad) {
-  return (n_pad + 15) / 16 * 16;
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
 }
 
-// the 64-query tile q0 of head h of image b; any blockDim.x >= 128 (a
-// multiple of 32), att_layout(nk, HD).total bytes of dynamic shared memory
+// c[16 x 8] += a[16 x 16] . b[16 x 8], bf16 in, f32 accumulate
+__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// S[16 x 8 NT] = Q . K[key0 .. key0 + 8 NT)^T for one warp's 16 rows
+template <int HD, int NT>
+__device__ __forceinline__ void qk_scores(float (&s)[NT][4],
+                                          const uint32_t (&qa)[HD / 16][4],
+                                          const bf16* Ks, int key0) {
+  constexpr int LD = HD + 8;
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+    const bf16* row = Ks + (key0 + nt * 8 + (lane & 7)) * LD + (lane >> 3) * 8;
+#pragma unroll
+    for (int kc = 0; kc < HD / 16; kc += 2) {
+      uint32_t b[4];  // b0, b1 of columns kc and kc + 1
+      ldmatrix_x4(b, row + kc * 16);
+      mma16816(s[nt], qa[kc], b[0], b[1]);
+      mma16816(s[nt], qa[kc + 1], b[2], b[3]);
+    }
+  }
+}
+
+// keys >= n_valid (padding) at -1e30; this lane's columns 2 (lane % 4), +1
+template <int NT>
+__device__ __forceinline__ void mask_keys(float (&s)[NT][4], int key0,
+                                          int n_valid) {
+  const int c = key0 + 2 * (threadIdx.x & 3);
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (c + nt * 8 + (i & 1) >= n_valid) s[nt][i] = kNegInf;
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// Head h of image b: any blockDim.x that is a multiple of 32, att_smem
+// bytes of dynamic shared memory at ``smem``. q (already scaled), k, v from
+// the head-major qkv [3, B, H, n_pad, HD]; out [B, n_pad, H * HD].
 template <int HD>
-__device__ __forceinline__ void attention_tile(const bf16* qkv, bf16* out,
+__device__ __forceinline__ void attention_head(const bf16* qkv, bf16* out,
                                                int B, int H, int n_pad,
-                                               int n_valid, int nk, int q0,
-                                               int h, int b,
+                                               int n_valid, int h, int b,
                                                unsigned char* smem) {
-  constexpr int LDK = HD + 8;
-  const AttLayout L = att_layout(nk, HD);
-  bf16* Ks = reinterpret_cast<bf16*>(smem + L.k);
-  bf16* Vs = reinterpret_cast<bf16*>(smem + L.v);
-  bf16* Qs = reinterpret_cast<bf16*>(smem + L.q);
-  const int lds = nk + 4, ldp = nk + 8;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int nthreads = blockDim.x;
-
+  constexpr int LD = HD + 8;
+  constexpr int VPR = HD / 8;  // 16-byte vectors per row
+  const int chunks = (n_valid + 63) / 64;
+  const int rows = chunks * 64;  // keys past this are never read
+  bf16* Ks = reinterpret_cast<bf16*>(smem);
+  bf16* Vs = Ks + att_rows(n_pad) * LD;
   const size_t head = (size_t)n_pad * HD;
   const bf16* qg = qkv + ((size_t)(0 * B + b) * H + h) * head;
   const bf16* kg = qkv + ((size_t)(1 * B + b) * H + h) * head;
   const bf16* vg = qkv + ((size_t)(2 * B + b) * H + h) * head;
 
-  constexpr int VPR = HD / 8;  // 16-byte vectors per row
-  for (int e = tid; e < nk * VPR; e += nthreads) {
+  __syncthreads();  // every warp is done with the previous head's K and V
+  for (int e = threadIdx.x; e < rows * VPR; e += blockDim.x) {
     const int r = e / VPR, c = (e % VPR) * 8;
-    uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
-    if (r < n_pad) {
-      kv = *reinterpret_cast<const uint4*>(kg + (size_t)r * HD + c);
-      vv = *reinterpret_cast<const uint4*>(vg + (size_t)r * HD + c);
-    }
-    *reinterpret_cast<uint4*>(Ks + r * LDK + c) = kv;
-    *reinterpret_cast<uint4*>(Vs + r * LDK + c) = vv;
+    const bool in = r < n_pad;  // rows past n_pad load zeros
+    const size_t off = in ? (size_t)r * HD + c : 0;
+    cp_async16(Ks + r * LD + c, kg + off, in);
+    cp_async16(Vs + r * LD + c, vg + off, in);
   }
-  for (int e = tid; e < ATT_QT * VPR; e += nthreads) {
-    const int r = e / VPR, c = (e % VPR) * 8;
-    uint4 qv = make_uint4(0, 0, 0, 0);
-    if (q0 + r < n_pad)
-      qv = *reinterpret_cast<const uint4*>(qg + (size_t)(q0 + r) * HD + c);
-    *reinterpret_cast<uint4*>(Qs + r * LDK + c) = qv;
-  }
+  cp_async_wait_all();
   __syncthreads();
-  if (warp >= ATT_WARPS) return;  // from here on warp-local work only
 
-  float* Sw = reinterpret_cast<float*>(smem + L.s + warp * att_s_warp(nk, HD));
-  bf16* Pw = reinterpret_cast<bf16*>(
-      smem + L.p + warp * align128((size_t)16 * ldp * sizeof(bf16)));
-
-  // S = Q_w . K^T for this warp's 16 query rows
-  const bf16* Qw = Qs + warp * 16 * LDK;
-  for (int kb = 0; kb < nk / 16; ++kb) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> s;
-    wmma::fill_fragment(s, 0.f);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, cq = 2 * (lane & 3);
+  const int D = H * HD;
+  for (int r0 = warp * 16; r0 < n_pad; r0 += (blockDim.x >> 5) * 16) {
+    // this warp's 16 query rows as m16n8k16 A fragments (rows past n_pad 0)
+    uint32_t qa[HD / 16][4];
+    const int ra = r0 + g, rb = r0 + g + 8;
 #pragma unroll
-    for (int kd = 0; kd < HD; kd += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-      wmma::load_matrix_sync(fa, Qw + kd, LDK);
-      wmma::load_matrix_sync(fb, Ks + kb * 16 * LDK + kd, LDK);
-      wmma::mma_sync(s, fa, fb, s);
+    for (int kc = 0; kc < HD / 16; ++kc) {
+      const int c = kc * 16 + cq;
+      qa[kc][0] = ra < n_pad ? *reinterpret_cast<const uint32_t*>(
+                                   qg + (size_t)ra * HD + c) : 0u;
+      qa[kc][1] = rb < n_pad ? *reinterpret_cast<const uint32_t*>(
+                                   qg + (size_t)rb * HD + c) : 0u;
+      qa[kc][2] = ra < n_pad ? *reinterpret_cast<const uint32_t*>(
+                                   qg + (size_t)ra * HD + c + 8) : 0u;
+      qa[kc][3] = rb < n_pad ? *reinterpret_cast<const uint32_t*>(
+                                   qg + (size_t)rb * HD + c + 8) : 0u;
     }
-    wmma::store_matrix_sync(Sw + kb * 16, s, lds, wmma::mem_row_major);
-  }
-  __syncwarp();
 
-  // f32 softmax over the key axis; keys >= n_valid (padding) at -1e30
-  for (int r = 0; r < 16; ++r) {
-    float* srow = Sw + r * lds;
-    float mx = kNegInf;
-    for (int j = lane; j < nk; j += 32) {
-      const float v = j < n_valid ? srow[j] : kNegInf;
-      srow[j] = v;
-      mx = fmaxf(mx, v);
-    }
+    // pass 1: f32 max and sum of exp(s - max) of rows g and g + 8, online;
+    // exp(s - m) is taken as exp2(s log2(e) - m log2(e)), m kept scaled
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+    for (int ch = 0; ch < chunks; ++ch) {
+      float s[8][4];
+      qk_scores<HD, 8>(s, qa, Ks, ch * 64);
+      mask_keys<8>(s, ch * 64, n_valid);
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1)
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-    float sum = 0.f;
-    for (int j = lane; j < nk; j += 32) {
-      const float e = expf(srow[j] - mx);
-      srow[j] = e;
-      sum += e;
-    }
-    sum = warp_sum(sum);
-    bf16* prow = Pw + r * ldp;
-    for (int j = lane; j < nk; j += 32)
-      prow[j] = __float2bfloat16(srow[j] / sum);
-  }
-  __syncwarp();
-
-  // O_w = P_w . V, staged as f32 [16][HD+4] in the (now free) score tile
-  constexpr int LDO = HD + 4;
+      for (int r = 0; r < 2; ++r) {
+        float mx = kNegInf;
 #pragma unroll
-  for (int db = 0; db < HD / 16; ++db) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> o;
-    wmma::fill_fragment(o, 0.f);
-    for (int kb = 0; kb < nk / 16; ++kb) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-      wmma::load_matrix_sync(fa, Pw + kb * 16, ldp);
-      wmma::load_matrix_sync(fb, Vs + kb * 16 * LDK + db * 16, LDK);
-      wmma::mma_sync(o, fa, fb, o);
+        for (int nt = 0; nt < 8; ++nt)
+          mx = fmaxf(mx, fmaxf(s[nt][2 * r], s[nt][2 * r + 1]));
+        const float mn = fmaxf(m[r], quad_max(mx) * kLog2e);
+        float e = 0.f;
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt)
+          e += exp2f(fmaf(s[nt][2 * r], kLog2e, -mn)) +
+               exp2f(fmaf(s[nt][2 * r + 1], kLog2e, -mn));
+        l[r] = l[r] * exp2f(m[r] - mn) + quad_sum(e);
+        m[r] = mn;
+      }
     }
-    wmma::store_matrix_sync(Sw + db * 16, o, LDO, wmma::mem_row_major);
-  }
-  __syncwarp();
+    const float inv[2] = {1.f / l[0], 1.f / l[1]};
 
-  // heads interleaved: out[b, t, h*hd + d]
-  for (int e = lane; e < 16 * HD; e += 32) {
-    const int r = e / HD, d = e % HD;
-    const int t = q0 + warp * 16 + r;
-    if (t < n_pad)
-      out[((size_t)b * n_pad + t) * (H * HD) + h * HD + d] =
-          __float2bfloat16(Sw[r * LDO + d]);
+    // pass 2: P = bf16(exp(s - m) / l) 32 keys at a time, O += P . V in f32
+    float o[HD / 8][4];
+#pragma unroll
+    for (int dn = 0; dn < HD / 8; ++dn)
+      o[dn][0] = o[dn][1] = o[dn][2] = o[dn][3] = 0.f;
+    for (int k0 = 0; k0 < rows; k0 += 32) {
+      float s[4][4];
+      qk_scores<HD, 4>(s, qa, Ks, k0);
+      mask_keys<4>(s, k0, n_valid);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        uint32_t pa[4];  // A fragment: rows g, g + 8; keys 2 (lane % 4) (+8)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const float* sj = s[2 * half + j];
+          pa[2 * j] = pack_bf16(exp2f(fmaf(sj[0], kLog2e, -m[0])) * inv[0],
+                                exp2f(fmaf(sj[1], kLog2e, -m[0])) * inv[0]);
+          pa[2 * j + 1] =
+              pack_bf16(exp2f(fmaf(sj[2], kLog2e, -m[1])) * inv[1],
+                        exp2f(fmaf(sj[3], kLog2e, -m[1])) * inv[1]);
+        }
+        const bf16* vrow = Vs + (k0 + 16 * half + (lane & 7) +
+                                 ((lane >> 3) & 1) * 8) * LD +
+                           (lane >> 4) * 8;
+#pragma unroll
+        for (int dn = 0; dn < HD / 8; dn += 2) {
+          uint32_t vb[4];  // b0, b1 of d-tiles dn and dn + 1
+          ldmatrix_x4_trans(vb, vrow + dn * 8);
+          mma16816(o[dn], pa, vb[0], vb[1]);
+          mma16816(o[dn + 1], pa, vb[2], vb[3]);
+        }
+      }
+    }
+
+    // heads interleaved: out[b, t, h * HD + d], O rounded to bf16
+#pragma unroll
+    for (int dn = 0; dn < HD / 8; ++dn) {
+      bf16* col = out + (size_t)b * n_pad * D + h * HD + dn * 8 + cq;
+      if (ra < n_pad) store_pair(col + (size_t)ra * D, o[dn][0], o[dn][1]);
+      if (rb < n_pad) store_pair(col + (size_t)rb * D, o[dn][2], o[dn][3]);
+    }
   }
 }
 

@@ -71,7 +71,7 @@ class CLAM_SB(nn.Module):
     multi_branch = False
     gate = True
 
-    def __init__(self, size_arg: str = "hipt_smaller", n_classes: int = 2):
+    def __init__(self, size_arg: str = "small", n_classes: int = 2):
         super().__init__()
         size = MIL_SIZE_DICT[size_arg]
         self.size = size
@@ -114,7 +114,7 @@ def init_reference_weights(model: nn.Module,
     return model
 
 
-def build_mil_model(model_type: str, *, size_arg: str = "hipt_smaller",
+def build_mil_model(model_type: str, *, size_arg: str = "small",
                     n_classes: int = 2, gate: bool = True) -> CLAM_SB:
     """Model-type dispatch (reference: main.py:329); only the gated
     CLAM_SB is ported."""

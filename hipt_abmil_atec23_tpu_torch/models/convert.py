@@ -24,17 +24,29 @@ def _t(a) -> torch.Tensor:
 
 def load_torch_state_dict(path: str, checkpoint_key: str = "teacher"
                           ) -> Dict[str, torch.Tensor]:
-    """Load a torch checkpoint with the reference's DINO conventions
-    (HIPT_4K/hipt_model_utils.py:39-110): take the ``checkpoint_key``
-    entry when present ('teacher'; None for a bare state dict such as a
-    CLAM checkpoint) and strip leading 'module.'/'backbone.' prefixes,
-    which may stack. Values come back as f32 CPU tensors."""
+    """Load a torch checkpoint with the reference's loading conventions:
+    DINO (the ``checkpoint_key`` entry when present, 'teacher'; None for a
+    bare state dict such as a CLAM checkpoint; leading 'module.'/'backbone.'
+    prefixes, which may stack - HIPT_4K/hipt_model_utils.py:39-110), the
+    Histo self-supervised ResNet layout ({'state_dict': ...} whose keys
+    also lose leading 'model.'/'resnet.' prefixes -
+    models/resnet_custom.py:112-135), and a pickled module (its
+    ``state_dict()``). Only prefixes strip: an interior '.model.' stays.
+    Values come back as f32 CPU tensors."""
     sd = torch.load(path, map_location="cpu", weights_only=False)
+    histo_layout = False
     if checkpoint_key and checkpoint_key in sd:
         sd = sd[checkpoint_key]
+    elif isinstance(sd, dict) and "state_dict" in sd:
+        sd = sd["state_dict"]
+        histo_layout = True
+    if hasattr(sd, "state_dict"):
+        sd = sd.state_dict()
+    prefixes = ("module.", "backbone.") + (
+        ("model.", "resnet.") if histo_layout else ())
     out = {}
     for k, v in sd.items():
-        while k.startswith(("module.", "backbone.")):
+        while k.startswith(prefixes):
             k = k.split(".", 1)[1]
         out[k] = torch.as_tensor(v).detach().float().cpu()
     return out

@@ -93,10 +93,14 @@ def _lib() -> ctypes.CDLL:
     if not getattr(lib, "_hk_bound", False):
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.fused_network_forward.argtypes = (
-            [p] * 20 + [i] * 8 + [ctypes.c_float, ctypes.c_float, i, p])
+            [p] * 22 + [i] * 8 + [ctypes.c_float, ctypes.c_float, i, p])
         lib.fused_network_forward.restype = i
         lib.fused_network_smem.argtypes = [i, i]
         lib.fused_network_smem.restype = ctypes.c_size_t
+        lib.fused_network_clock_len.argtypes = [i]
+        lib.fused_network_clock_len.restype = i
+        lib.fused_network_counters_len.argtypes = [i]
+        lib.fused_network_counters_len.restype = i
         lib.fused_network_error_string.argtypes = [i]
         lib.fused_network_error_string.restype = ctypes.c_char_p
         lib._hk_bound = True
@@ -150,9 +154,20 @@ def _check_kernel_shapes(x, weights, num_heads, n_valid) -> int:
     return hidden
 
 
-def _launch(x, weights, *, num_heads, n_valid, eps, grid=0) -> torch.Tensor:
+def clock_len(depth: int) -> int:
+    """Timestamps one clocked launch of a ``depth``-block stack writes: the
+    start, then the arrival at and the departure from each grid barrier
+    (one after the first LN1, then 5 per block; CTA 0's %globaltimer,
+    ns)."""
+    return _lib().fused_network_clock_len(depth)
+
+
+def _launch(x, weights, *, num_heads, n_valid, eps, grid=0,
+            clock: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One cooperative launch of the kernel over all T blocks; ``grid``
-    CTAs, or all that are co-resident."""
+    CTAs, or all that are co-resident. ``clock``: None, or an int64 CUDA
+    tensor of ``clock_len(T)`` that the stage timer fills (only a
+    measurement passes one)."""
     b, n_pad, d = x.shape
     hidden = _check_kernel_shapes(x, weights, num_heads, n_valid)
     hd = d // num_heads
@@ -175,9 +190,16 @@ def _launch(x, weights, *, num_heads, n_valid, eps, grid=0) -> torch.Tensor:
                torch.empty((m, hidden), device=dev, dtype=bf16)]     # h
     out = torch.empty_like(x)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    ptrs = [t.data_ptr() for t in [x, *wts, *scratch, out]]
+    depth = weights[0].shape[0]
+    if clock is not None and (clock.dtype != torch.int64 or clock.device != dev
+                              or clock.numel() != clock_len(depth)):
+        raise ValueError(f"clock must be {clock_len(depth)} int64 on {dev}")
+    counters = torch.empty(lib.fused_network_counters_len(depth),
+                           device=dev, dtype=torch.int32)
+    ptrs = [t.data_ptr() for t in [x, *wts, *scratch, out, counters]]
+    ptrs.append(None if clock is None else clock.data_ptr())
     err = lib.fused_network_forward(
-        *ptrs, weights[0].shape[0], b, n_pad, d, num_heads, n_valid, hidden,
+        *ptrs, depth, b, n_pad, d, num_heads, n_valid, hidden,
         int(x.dtype == f32), eps, hd ** -0.5, grid, stream)
     build.check(lib, "fused_network_error_string", err, "fused_vit_network")
     return out

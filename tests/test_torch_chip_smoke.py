@@ -53,3 +53,26 @@ def test_attention_check_rejects_planted_faults(fault, q_scale):
         with pytest.raises(SystemExit):
             chip_smoke._attn_check("flash_attention", fault, got, want)
 
+
+
+def test_stage_split_of_the_network_clock():
+    """chip_smoke's B.8 stage split: a stage runs from the last departure to
+    CTA 0's arrival, the barrier wait from arrival to departure, summed per
+    stage kind over the blocks; a clock of the wrong length raises."""
+    kinds = list(chip_smoke.STAGE_KINDS) * 2
+    clock, now = [1000], 1000
+    for i, _ in enumerate(kinds):
+        now += (i + 1) * 1_000_000        # stage i takes (i + 1) ms
+        clock.append(now)
+        now += 10_000                     # then 0.01 ms at the barrier
+        clock.append(now)
+    split = chip_smoke.stage_split(clock, 2)
+    n = len(chip_smoke.STAGE_KINDS)
+    for i, kind in enumerate(chip_smoke.STAGE_KINDS):
+        assert split[kind] == pytest.approx((i + 1) + (i + 1 + n))
+        assert split["wait after"][kind] == pytest.approx(0.02)
+    assert split["barriers"] == pytest.approx(0.01 * len(kinds))
+    assert split["total"] == pytest.approx(
+        sum(range(1, len(kinds) + 1)) + 0.01 * len(kinds))
+    with pytest.raises(ValueError):
+        chip_smoke.stage_split(clock[:-2], 2)

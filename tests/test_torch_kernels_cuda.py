@@ -27,11 +27,18 @@ def cuda_device():
     return torch.device("cuda")
 
 
+# The block tiles' edges: M = B n_pad not a multiple of the 128-row GEMM
+# tile (48, 528, 16, 960); D = 96 (QKV N = 288 past two 128-column tiles,
+# K = 96 past one 64-deep step); D = 64 with one head of 64; n_pad 320, the
+# most K and V rows the attention tile is laid out for at hd 64 (five
+# 64-key chunks); n_valid = n_pad (no padded key).
+EDGE_SHAPES = [(3, 16, 9, 96, 3), (2, 264, 257, 192, 6),
+               (4, 264, 257, 384, 6), (2, 8, 5, 64, 1),
+               (3, 320, 301, 192, 3), (2, 264, 264, 384, 6)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,n,nv,d,heads", [(3, 16, 9, 96, 3),
-                                            (2, 264, 257, 192, 6),
-                                            (4, 264, 257, 384, 6),
-                                            (2, 8, 5, 64, 1)])
+@pytest.mark.parametrize("b,n,nv,d,heads", EDGE_SHAPES)
 def test_block_kernel_matches_plain(b, n, nv, d, heads, cuda_device):
     """bf16 kernel against the plain version on the same card inputs:
     |kernel - plain| <= 3e-2 + 5e-2 |plain| (bf16 rounding of P and the
@@ -77,7 +84,9 @@ def _random_blocks(depth, d, heads, g, dev):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,n,nv,d,heads", [(3, 16, 9, 96, 3),
-                                            (4, 264, 257, 384, 6)])
+                                            (4, 264, 257, 384, 6),
+                                            (2, 8, 5, 64, 1),
+                                            (3, 320, 320, 192, 3)])
 def test_block_kernel_takes_an_f32_residual(b, n, nv, d, heads, cuda_device):
     """f32 x: the kernel reads the f32 residual, rounds the GEMM operands
     to bf16 and writes f32, so it matches the plain version with bf16
@@ -132,7 +141,8 @@ def _dino_blocks(depth, d, heads, g, dev):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("b,n,nv,d,heads,depth", [
     (4, 24, 20, 384, 6, 3), (2, 264, 257, 192, 6, 2),
-    (2, 264, 257, 384, 6, 12)])
+    (2, 264, 257, 384, 6, 12), (3, 16, 9, 96, 3, 2), (2, 8, 5, 64, 1, 3),
+    (3, 320, 320, 192, 3, 2)])
 def test_network_kernel_matches_plain(b, n, nv, d, heads, depth, dtype,
                                       cuda_device):
     """One cooperative launch runs all T blocks: against the plain version
@@ -171,7 +181,7 @@ def test_network_kernel_refuses_what_it_does_not_take(cuda_device):
     sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
     with pytest.raises(RuntimeError, match="CUDA error"):
         fnw._launch(x, ws, num_heads=6, n_valid=16, eps=1e-6,
-                    grid=9 * sms)  # 256-thread CTAs: at most 8 per SM
+                    grid=8 * sms)  # 288-thread CTAs: at most 7 per SM
     out = fnw.fused_vit_network(x, *ws, num_heads=6, group=1)
     torch.cuda.synchronize()
     assert bool(torch.isfinite(out).all())

@@ -358,3 +358,26 @@ def test_encode_stream_matches_jax_across_batches(served):
     finally:
         for s in slides:
             s.close()
+
+
+def test_serve_scores_a_wrapped_clam_checkpoint(served, tmp_path):
+    """A CLAM .pt in the {'state_dict': ...} layout ('model.' prefixes, as
+    a lightning-style wrapper writes it) loads through the port's serve and
+    scores each slide as the bare checkpoint does."""
+    _, _, ckpt, _, tcfg, _, trecs, state = served
+    wrapped = str(tmp_path / "clam_wrapped.pt")
+    bare = torch.load(ckpt, map_location="cpu", weights_only=False)
+    torch.save({"state_dict": {f"model.{k}": v for k, v in bare.items()},
+                "epoch": 7}, wrapped)
+    cfg = dataclasses.replace(tcfg, ckpt_path=wrapped,
+                              out_dir=str(tmp_path / "out"))
+    fresh = serve.ServeState(device=torch.device("cpu"),
+                             encoder=state.encoder)
+    recs = serve.serve_once(cfg, fresh, verbose=False)
+    want = {r["slide_id"]: r for r in trecs}
+    assert sorted(r["slide_id"] for r in recs) == sorted(want)
+    for r in recs:
+        assert r["status"] == "done" and r["y_hat"] == want[r["slide_id"]][
+            "y_hat"]
+        np.testing.assert_allclose(r["p"], want[r["slide_id"]]["p"],
+                                   rtol=0, atol=1e-6)
