@@ -10,7 +10,10 @@ Phases (any failure exits non-zero, and no result line is printed):
      against its plain PyTorch version on the card, at the main path's
      shapes, with the stated tolerance; time both, the bound of the same
      work, and the one PyTorch call that computes it where there is one.
-     The block kernel also at an f32 residual. The pool runs at the HIPT
+     The block kernel also at an f32 residual, with its time by stage
+     (torch.profiler over its seven launches) beside the network kernel's
+     (%globaltimer stamps at its grid barriers), and nvcc's -Xptxas -v
+     report and HGMMA count of both. The pool runs at the HIPT
      head (L 16) and at the reference CLAM 'small' head (L 512) on a
      [100000, 1024] slide bag; its partial mode at both widths on full
      slide bags.
@@ -57,7 +60,6 @@ Phases (any failure exits non-zero, and no result line is printed):
      PATH.per_op.
 
     python3 chip_smoke.py --profile chiprun_out/profile.txt
-    PYTHONPATH=<tree>:. python3 chip_smoke.py --block-bench   # B.1, B.8 only
 
 The line before the last is a JSON object with one record per kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -193,6 +195,48 @@ def _block_library_ms(b, n, nv, d, heads, dev) -> float:
         return gpu_timer(lambda: layer(x, src_key_padding_mask=pad))
 
 
+# B.1's launches by the stage each runs, as torch.profiler names their
+# kernels (for bf16 x: LN1 reads bf16, LN2 the f32 x2)
+BLOCK_LAUNCHES = {"layernorm_kernel<__nv_bfloat16>": "LN1",
+                  "gemm_kernel<0>": "QKV", "attention_kernel<64>": "attention",
+                  "attention_kernel<32>": "attention", "gemm_kernel<1>": "PROJ",
+                  "layernorm_kernel<float>": "LN2", "gemm_kernel<2>": "FC1",
+                  "gemm_kernel<3>": "FC2"}
+
+
+def block_launch_split(kernel_ms: dict) -> dict:
+    """B.1's ms per call by stage, in STAGE_KINDS' order, from device ms
+    per call by profiler kernel name; other kernels are left out."""
+    out = {}
+    for name, ms in kernel_ms.items():
+        m = re.search(r"(\w+_kernel<[^>]*>)", name)
+        stage = BLOCK_LAUNCHES.get(m.group(1)) if m else None
+        if stage:
+            out[stage] = out.get(stage, 0.0) + ms
+    return {k: out[k] for k in STAGE_KINDS if k in out}
+
+
+def kernel_ms(events, calls: int) -> dict:
+    """Device ms per call by name from torch.profiler's key_averages() over
+    ``calls`` calls (device_time_total: us summed over them); rows without
+    device time are left out."""
+    return {e.key: e.device_time_total / (1e3 * calls) for e in events
+            if e.device_time_total > 0}
+
+
+def _launch_split(fn, calls: int = 5) -> dict:
+    """Device ms per call of each kernel ``fn`` launches, from
+    torch.profiler over ``calls`` warm calls."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return kernel_ms(prof.key_averages(), calls)
+
+
 def _kernel_block(dev, g) -> dict:
     worst, timed = 0.0, None
     # ViT-256 at the slice's batch (2 regions x 256 tiles), a 64-image
@@ -226,10 +270,16 @@ def _kernel_block(dev, g) -> dict:
                          for p in blk.parameters())
             flops = 2 * b * nv * d * (3 * d + d + 8 * d) + 4 * b * nv * nv * d
             lib = _block_library_ms(b, n, nv, d, h, dev)
+            with torch.inference_mode():
+                split = block_launch_split(_launch_split(
+                    lambda: fused_vit_block(x, blk, num_heads=h,
+                                            n_valid=nv)))
             log(f"fused_block [{b},{n},{d}]: nn.TransformerEncoderLayer "
-                f"{lib:.4f} ms")
+                f"{lib:.4f} ms; launch split, ms per call (torch.profiler, "
+                "5 calls): " + ", ".join(f"{k} {v:.4f}"
+                                         for k, v in split.items()))
             timed = (ms, pms, f"[{b},{n},{d}] bf16, n_valid {nv}",
-                     2 * x.numel() * 2 + wbytes, flops, lib)
+                     2 * x.numel() * 2 + wbytes, flops, lib, split)
         del blk, x, got, want, err
     # an f32 residual stream: bf16 operands, f32 in and out
     gf = torch.Generator().manual_seed(5)
@@ -248,12 +298,13 @@ def _kernel_block(dev, g) -> dict:
         f32_ms = gpu_timer(lambda: fused_vit_block(x, blk, num_heads=6,
                                                    n_valid=257))
     log(f"fused_block [64,264,384] f32: kernel {f32_ms:.4f} ms")
-    ms, pms, shape, nbytes, flops, lib = timed
+    ms, pms, shape, nbytes, flops, lib, split = timed
     rec = record("fused_block",
                  "hipt_abmil_atec23_tpu_torch/kernels/csrc/fused_block.cu",
                  "hipt_abmil_atec23_tpu/ops/fused_block.py:60", worst, ms,
                  pms, shape, nbytes, flops, BF16_FLOP_S, lib)
     rec["f32_ms_64x264x384"] = f32_ms
+    rec["stage_ms"] = split
     return rec
 
 
@@ -1512,64 +1563,6 @@ def phase_profile(dev, encoder, per_op_encoder, planes, dct_slide, path, *,
                     "per-op")
 
 
-# ------------------------------------------------------------ --block-bench
-def phase_block_bench(dev) -> None:
-    """B.1 and B.8 alone, for comparing two versions of their tiles in one
-    call (run once per tree, PYTHONPATH=<tree>:.): B.1 at [512,264,384] bf16
-    (three timings and a torch.profiler table of its launches) and at
-    [64,264,384] f32; B.8 on ViT-256's 12 seeded blocks at [512,264,384]
-    beside 12 chained B.1 launches on a bf16 and an f32 residual, and its
-    stage split."""
-    from torch.profiler import ProfilerActivity, profile
-    g = torch.Generator().manual_seed(0)
-    b, n, nv, d, h = 512, 264, 257, 384, 6
-    blk = _random_block(d, h, g, dev)
-    x = torch.randn(b, n, d, generator=g).to(dev, torch.bfloat16)
-    f = lambda: fused_vit_block(x, blk, num_heads=h, n_valid=nv)
-    with torch.inference_mode():
-        got = f().float()
-        want = fused_vit_block_reference(x, blk, num_heads=h,
-                                         n_valid=nv).float()
-        err = (got - want).abs()
-        ok = bool((err <= BLOCK_TOL[0] + BLOCK_TOL[1] * want.abs()).all())
-        ms = [gpu_timer(f, iters=20) for _ in range(3)]
-        log(f"B.1 [{b},{n},{d}] bf16: max_abs_err {err.max().item():.6g} "
-            f"within bound {ok}; ms {ms}")
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(5):
-                f()
-            torch.cuda.synchronize()
-        log(prof.key_averages().table(sort_by="cuda_time_total",
-                                      row_limit=9, max_name_column_width=50))
-        xf = torch.randn(64, n, d, generator=g).to(dev)
-        f32_ms = gpu_timer(
-            lambda: fused_vit_block(xf, blk, num_heads=h, n_valid=nv), 20)
-        log(f"B.1 [64,{n},{d}] f32: ms {f32_ms}")
-    vit = make_hipt_encoder(torch.bfloat16, use_fused_block=True,
-                            generator=torch.Generator().manual_seed(7)
-                            ).vit256.to(dev).eval()
-    ws = stack_blocks(vit.blocks)
-    xt = (torch.randn(b, n, d, generator=g) * 0.5).to(dev, torch.bfloat16)
-    run = lambda: fused_vit_network(xt, *ws, num_heads=h, n_valid=nv)
-
-    def chain(y=xt):
-        for bk in vit.blocks:
-            y = fused_vit_block(y, bk, num_heads=h, n_valid=nv)
-        return y
-
-    with torch.inference_mode():
-        got = run()
-        want = fused_vit_network_reference(xt, *ws, num_heads=h, n_valid=nv)
-        log(f"B.8: max_abs_err "
-            f"{(got.float() - want.float()).abs().max().item():.6g}, min "
-            f"row cosine {_row_cosine(got[:, :nv], want[:, :nv]):.7f}")
-        for _ in range(2):
-            log(f"B.8 ms {gpu_timer(run, 5):.4f}, 12 chained B.1 ms "
-                f"{gpu_timer(chain, 5):.4f}, on an f32 residual "
-                f"{gpu_timer(lambda: chain(xt.float()), 5):.4f}")
-    _network_stage_split(xt, ws, h, nv, vit.cfg.depth)
-
-
 def set_launches(records, paths) -> None:
     """Each record's launches from the run of the path that owns its kernel
     (``paths``: name -> a phase's result, whose "owned" holds the counts
@@ -1589,17 +1582,11 @@ def main() -> int:
                     help="also profile one slide's encode_stream (phase 8) "
                          "and write the kernel tables to PATH and "
                          "PATH.per_op")
-    ap.add_argument("--block-bench", action="store_true",
-                    help="time only the block (B.1) and network (B.8) "
-                         "kernels and exit, printing no result line")
     args = ap.parse_args()
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in f32
     torch.backends.cudnn.allow_tf32 = False
     smi = phase_device()
     dev = require_cuda()
-    if args.block_bench:
-        phase_block_bench(dev)
-        return 0
     t0 = time.perf_counter()
     planes = [he_like_planes(10 + i, SLIDE) for i in range(2)]
     dct_slides = [DctMemorySlide(*p[1:]) for p in planes]

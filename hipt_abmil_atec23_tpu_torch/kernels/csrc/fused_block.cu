@@ -42,15 +42,14 @@ namespace {
 
 constexpr int LN_WARPS = 8;
 
+// two rows per warp: rows r and r + LN_WARPS of the CTA's 2 LN_WARPS
 template <typename TIn>
 __global__ void __launch_bounds__(LN_WARPS * 32)
 layernorm_kernel(const TIn* __restrict__ x, const float* __restrict__ g,
                  const float* __restrict__ b, bf16* __restrict__ y, int M,
                  int D, float eps) {
-  const int row = blockIdx.x * LN_WARPS + (threadIdx.x >> 5);
-  if (row >= M) return;
-  layernorm_row<TIn>(x + (size_t)row * D, g, b, y + (size_t)row * D, D, eps,
-                     nullptr);
+  const int row = blockIdx.x * 2 * LN_WARPS + (threadIdx.x >> 5);
+  layernorm_rows2<TIn>(x, g, b, y, D, eps, row, row + LN_WARPS, M, nullptr);
 }
 
 // one CTA per 128 x 128 tile
@@ -97,7 +96,8 @@ template <typename TIn>
 cudaError_t launch_layernorm(const TIn* x, const float* g, const float* b,
                              bf16* y, int M, int D, float eps,
                              cudaStream_t s) {
-  layernorm_kernel<TIn><<<(M + LN_WARPS - 1) / LN_WARPS, LN_WARPS * 32, 0, s>>>(
+  const int rows = 2 * LN_WARPS;
+  layernorm_kernel<TIn><<<(M + rows - 1) / rows, LN_WARPS * 32, 0, s>>>(
       x, g, b, y, M, D, eps);
   return cudaGetLastError();
 }

@@ -14,10 +14,8 @@
 // the T blocks itself and walks B.1's seven stages (vit_block.cuh), with a
 // grid-wide barrier (cooperative_groups::this_grid().sync()) after each:
 //
-//   LN1    xn = bf16(LN1(xres)), two f32 rows per warp with 16-byte loads
-//          (the grid has a quarter of the warps a LayerNorm launch would,
-//          so each warp keeps more bytes in flight); block 0 reads x, one
-//          row per warp, and stores it to xres as f32
+//   LN1    xn = bf16(LN1(xres)), two rows per warp, as B.1's LayerNorm
+//          launches; block 0 reads x and stores it to xres as f32
 //   QKV    qkv = head-major bf16, q scaled in f32 before its cast
 //   ATTN   per (image, head): K and V loaded once, every warp computing
 //   PROJ   x2 = (xres + O . Wproj^T) + bproj          f32
@@ -98,32 +96,17 @@ __device__ __forceinline__ void barrier(const NetArgs& a, cg::grid_group& g,
   stamp(a, 2 + 2 * i);
 }
 
-// one warp per row over the grid's warps
+// two rows per warp (row, row + the grid's warps) over the grid's warps;
+// with ``copy`` set the rows are also stored there as f32
 template <typename TIn>
 __device__ __forceinline__ void layernorm_stage(const TIn* x, const float* g,
                                                 const float* b, bf16* y,
                                                 int M, int D, float eps,
                                                 float* copy) {
-  const int warps = blockDim.x >> 5;
-  for (int row = blockIdx.x * warps + (threadIdx.x >> 5); row < M;
-       row += gridDim.x * warps) {
-    const size_t off = (size_t)row * D;
-    layernorm_row<TIn>(x + off, g, b, y + off, D, eps,
-                       copy ? copy + off : nullptr);
-  }
-}
-
-// f32 rows: two rows per warp (row, row + the grid's warps) with 16-byte
-// loads, so each warp keeps twice the bytes in flight
-__device__ __forceinline__ void layernorm_stage_f32(const float* x,
-                                                    const float* g,
-                                                    const float* b, bf16* y,
-                                                    int M, int D,
-                                                    float eps) {
   const int warps = gridDim.x * (blockDim.x >> 5);
   for (int row = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
        row < M; row += 2 * warps)
-    layernorm_rows2_f32(x, g, b, y, D, eps, row, row + warps, M);
+    layernorm_rows2<TIn>(x, g, b, y, D, eps, row, row + warps, M, copy);
 }
 
 template <typename TX, int HD>
@@ -152,8 +135,8 @@ network_kernel(const __grid_constant__ NetArgs a) {
       layernorm_stage<TX>(static_cast<const TX*>(a.x), a.ln1_g, a.ln1_b,
                           a.xn, M, D, a.eps, a.xres);
     else
-      layernorm_stage_f32(a.xres, a.ln1_g + tv, a.ln1_b + tv, a.xn, M, D,
-                          a.eps);
+      layernorm_stage<float>(a.xres, a.ln1_g + tv, a.ln1_b + tv, a.xn, M, D,
+                             a.eps, nullptr);
     barrier(a, grid, bi);
 
     EpiArgs ep = {};
@@ -187,7 +170,8 @@ network_kernel(const __grid_constant__ NetArgs a) {
                          Sched{0, 0, counter + 2});
     barrier(a, grid, bi + 3);
 
-    layernorm_stage_f32(a.x2, a.ln2_g + tv, a.ln2_b + tv, a.xn, M, D, a.eps);
+    layernorm_stage<float>(a.x2, a.ln2_g + tv, a.ln2_b + tv, a.xn, M, D,
+                           a.eps, nullptr);
     barrier(a, grid, bi + 4);
 
     ep = EpiArgs{};

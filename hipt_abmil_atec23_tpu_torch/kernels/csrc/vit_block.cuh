@@ -7,8 +7,8 @@
 // kernels call it once per CTA and the persistent kernel calls it in
 // grid-stride loops:
 //
-//   layernorm_row   one warp, one row: y = bf16(LN(x)), f32 statistics;
-//                   optionally copies the row to an f32 buffer
+//   layernorm_rows2 one warp, two rows: y = bf16(LN(x)), f32 statistics;
+//                   optionally copies the rows to an f32 buffer
 //   gemm_tiles      GEMM_THREADS threads walk 128 x 128 tiles of A . W^T
 //                   (W in torch Linear [out, in] layout, optionally one
 //                   slice of a [T, N, K] stack) with one of four epilogues:
@@ -56,58 +56,36 @@ constexpr float kLog2e = 1.4426950408889634f;
 // ---------------------------------------------------------------- layernorm
 constexpr int LN_MAX_PER_LANE = 12;  // D <= 384
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
-
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
 
-// one warp, one row: yr = bf16((xr - mean) * rsqrt(var + eps) * g + b),
-// f32 statistics; with ``copy`` set the row is also stored there as f32.
-// ``xr`` may point into shared memory.
-template <typename TIn>
-__device__ __forceinline__ void layernorm_row(const TIn* xr, const float* g,
-                                              const float* b, bf16* yr, int D,
-                                              float eps, float* copy) {
-  const int lane = threadIdx.x & 31;
-  float v[LN_MAX_PER_LANE];
-  float s = 0.f;
-#pragma unroll
-  for (int i = 0; i < LN_MAX_PER_LANE; ++i) {
-    const int c = lane + 32 * i;
-    v[i] = c < D ? to_f32(xr[c]) : 0.f;
-    s += v[i];
-  }
-  const float mu = warp_sum(s) / D;
-  float q = 0.f;
-#pragma unroll
-  for (int i = 0; i < LN_MAX_PER_LANE; ++i) {
-    const int c = lane + 32 * i;
-    if (c < D) q += (v[i] - mu) * (v[i] - mu);
-  }
-  const float rstd = rsqrtf(warp_sum(q) / D + eps);
-#pragma unroll
-  for (int i = 0; i < LN_MAX_PER_LANE; ++i) {
-    const int c = lane + 32 * i;
-    if (c < D) {
-      yr[c] = __float2bfloat16((v[i] - mu) * rstd * g[c] + b[c]);
-      if (copy) copy[c] = v[i];
-    }
-  }
+// four consecutive elements of a row as f32 (16-byte f32 or 8-byte bf16
+// load); ``p`` is 4-element aligned
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const bf16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+  const float2 lo = __bfloat1622float2(h[0]), hi = __bfloat1622float2(h[1]);
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
 }
 
-// one warp, two f32 rows (r0, and r1 unless it is >= M) with 16-byte loads
-// and 8-byte stores: the same arithmetic as layernorm_row, with twice the
-// bytes in flight per warp
-__device__ __forceinline__ void layernorm_rows2_f32(const float* x,
-                                                    const float* g,
-                                                    const float* b, bf16* y,
-                                                    int D, float eps, int r0,
-                                                    int r1, int M) {
-  constexpr int V = LN_MAX_PER_LANE / 4;  // float4 per lane at D <= 384
+// One warp, two rows of x [M, D] (r0, and r1 unless it is >= M):
+// y = bf16((x - mean) * rsqrt(var + eps) * g + b) with f32 statistics; with
+// ``copy`` set each row is also stored there as f32. Each lane holds four
+// consecutive columns per 128, so a warp keeps both rows' loads in flight
+// at once. The only LayerNorm of both kernels, so their statistics agree
+// bit for bit.
+template <typename TIn>
+__device__ __forceinline__ void layernorm_rows2(const TIn* x, const float* g,
+                                                const float* b, bf16* y,
+                                                int D, float eps, int r0,
+                                                int r1, int M, float* copy) {
+  constexpr int V = LN_MAX_PER_LANE / 4;  // 4-column groups per lane
   const int lane = threadIdx.x & 31;
   float4 v[2][V];
 #pragma unroll
@@ -116,9 +94,8 @@ __device__ __forceinline__ void layernorm_rows2_f32(const float* x,
 #pragma unroll
     for (int i = 0; i < V; ++i) {
       const int c = 4 * (lane + 32 * i);
-      v[r][i] = m < M && c < D
-                    ? *reinterpret_cast<const float4*>(x + (size_t)m * D + c)
-                    : make_float4(0.f, 0.f, 0.f, 0.f);
+      v[r][i] = m < M && c < D ? load4(x + (size_t)m * D + c)
+                               : make_float4(0.f, 0.f, 0.f, 0.f);
     }
   }
 #pragma unroll
@@ -155,6 +132,8 @@ __device__ __forceinline__ void layernorm_rows2_f32(const float* x,
         pk.x = *reinterpret_cast<uint32_t*>(&lo);
         pk.y = *reinterpret_cast<uint32_t*>(&hi);
         *reinterpret_cast<uint2*>(y + (size_t)m * D + c) = pk;
+        if (copy)
+          *reinterpret_cast<float4*>(copy + (size_t)m * D + c) = v[r][i];
       }
     }
   }

@@ -157,8 +157,8 @@ def _check_kernel_shapes(x, weights, num_heads, n_valid) -> int:
 def clock_len(depth: int) -> int:
     """Timestamps one clocked launch of a ``depth``-block stack writes: the
     start, then the arrival at and the departure from each grid barrier
-    (one after the first LN1, then 5 per block; CTA 0's %globaltimer,
-    ns)."""
+    (seven per block: after LN1, QKV, attention, PROJ, LN2, FC1 and FC2;
+    CTA 0's %globaltimer, ns)."""
     return _lib().fused_network_clock_len(depth)
 
 

@@ -76,3 +76,40 @@ def test_stage_split_of_the_network_clock():
         sum(range(1, len(kinds) + 1)) + 0.01 * len(kinds))
     with pytest.raises(ValueError):
         chip_smoke.stage_split(clock[:-2], 2)
+
+
+def test_block_launch_split_names_each_stage():
+    """chip_smoke's B.1 split: profiler kernel names (demangled, with their
+    arguments) map to the block's stages in a block's order, a stage met
+    twice sums, and kernels of no stage are left out."""
+    ns = "void (anonymous namespace)::"
+    rows = {ns + "gemm_kernel<3>(CUtensorMap, CUtensorMap, int)": 0.4,
+            ns + "layernorm_kernel<float>(float const*, float*)": 0.1,
+            ns + "attention_kernel<64>(__nv_bfloat16 const*, int)": 0.3,
+            ns + "gemm_kernel<0>(CUtensorMap, CUtensorMap, int)": 0.5,
+            ns + "layernorm_kernel<__nv_bfloat16>(__nv_bfloat16 const*)": 0.2,
+            "void at::native::vectorized_elementwise_kernel<4>(int)": 9.0}
+    split = chip_smoke.block_launch_split(rows)
+    assert list(split) == ["LN1", "QKV", "attention", "LN2", "FC2"]
+    assert split["QKV"] == 0.5 and split["LN1"] == 0.2
+    assert chip_smoke.block_launch_split(
+        {**rows, ns + "attention_kernel<32>(int)": 0.05})[
+            "attention"] == pytest.approx(0.35)
+
+
+def test_kernel_ms_reads_device_time():
+    """chip_smoke's profiler reader: device us summed over the calls to ms
+    per call; this torch's own key_averages() rows and host rows, with no
+    device time, are left out."""
+    from types import SimpleNamespace as Row
+
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        torch.ones(8).add_(1)
+    assert chip_smoke.kernel_ms(prof.key_averages(), 5) == {}
+    rows = [Row(key="gemm_kernel<0>", device_time_total=1000.0),
+            Row(key="aten::add_", device_time_total=0.0),
+            Row(key="gemm_kernel<1>", device_time_total=500.0)]
+    assert chip_smoke.kernel_ms(rows, 5) == {
+        "gemm_kernel<0>": pytest.approx(0.2),
+        "gemm_kernel<1>": pytest.approx(0.1)}

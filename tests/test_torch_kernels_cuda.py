@@ -29,12 +29,16 @@ def cuda_device():
 
 # The block tiles' edges: M = B n_pad not a multiple of the 128-row GEMM
 # tile (48, 528, 16, 960); D = 96 (QKV N = 288 past two 128-column tiles,
-# K = 96 past one 64-deep step); D = 64 with one head of 64; n_pad 320, the
-# most K and V rows the attention tile is laid out for at hd 64 (five
-# 64-key chunks); n_valid = n_pad (no padded key).
+# K = 96 past one 64-deep step); D = 64 with one head of 64; n_pad 320;
+# n_valid = n_pad (no padded key); and the most tokens the attention tile's
+# K and V fit in shared memory for (LONGEST): 768 at hd 64, 1408 at hd 32.
+LONGEST = [(2, 768, 701, 128, 2), (1, 1408, 1350, 64, 2)]
 EDGE_SHAPES = [(3, 16, 9, 96, 3), (2, 264, 257, 192, 6),
                (4, 264, 257, 384, 6), (2, 8, 5, 64, 1),
-               (3, 320, 301, 192, 3), (2, 264, 264, 384, 6)]
+               (3, 320, 301, 192, 3), (2, 264, 264, 384, 6), *LONGEST]
+# one token-row chunk past LONGEST at each head size: K and V outgrow the
+# 227 KB of shared memory a CTA may have
+TOO_LONG = [(776, 128, 2), (1416, 64, 2)]
 
 
 @pytest.mark.cuda
@@ -71,6 +75,11 @@ def test_block_kernel_refuses_what_it_does_not_take(cuda_device):
         fused_vit_block(x, blk, num_heads=2)            # hd 96
     with pytest.raises(ValueError):
         fused_vit_block(x[:, :9].bfloat16(), blk, num_heads=6)  # n_pad 9
+    for n, d, heads in TOO_LONG:
+        long = Block(d, heads, 4.0, 1e-6).to(cuda_device)
+        with pytest.raises(ValueError, match="shared memory"):
+            fused_vit_block(torch.zeros(1, n, d, device=cuda_device), long,
+                            num_heads=heads)
 
 
 def _random_blocks(depth, d, heads, g, dev):
@@ -86,7 +95,8 @@ def _random_blocks(depth, d, heads, g, dev):
 @pytest.mark.parametrize("b,n,nv,d,heads", [(3, 16, 9, 96, 3),
                                             (4, 264, 257, 384, 6),
                                             (2, 8, 5, 64, 1),
-                                            (3, 320, 320, 192, 3)])
+                                            (3, 320, 320, 192, 3),
+                                            LONGEST[0]])
 def test_block_kernel_takes_an_f32_residual(b, n, nv, d, heads, cuda_device):
     """f32 x: the kernel reads the f32 residual, rounds the GEMM operands
     to bf16 and writes f32, so it matches the plain version with bf16
@@ -142,7 +152,7 @@ def _dino_blocks(depth, d, heads, g, dev):
 @pytest.mark.parametrize("b,n,nv,d,heads,depth", [
     (4, 24, 20, 384, 6, 3), (2, 264, 257, 192, 6, 2),
     (2, 264, 257, 384, 6, 12), (3, 16, 9, 96, 3, 2), (2, 8, 5, 64, 1, 3),
-    (3, 320, 320, 192, 3, 2)])
+    (3, 320, 320, 192, 3, 2), *[(*shape, 2) for shape in LONGEST]])
 def test_network_kernel_matches_plain(b, n, nv, d, heads, depth, dtype,
                                       cuda_device):
     """One cooperative launch runs all T blocks: against the plain version
@@ -178,6 +188,12 @@ def test_network_kernel_refuses_what_it_does_not_take(cuda_device):
         fnw.fused_vit_network(x, *ws, num_heads=2, group=1)       # hd 96
     with pytest.raises(ValueError):
         fnw.fused_vit_network(x[:, :9], *ws, num_heads=6, group=1)  # n_pad 9
+    for n, d, heads in TOO_LONG:
+        long = fnw.stack_blocks(_random_blocks(1, d, heads, g, cuda_device))
+        with pytest.raises(ValueError, match="shared memory"):
+            fnw.fused_vit_network(
+                torch.zeros(1, n, d, device=cuda_device, dtype=torch.bfloat16),
+                *long, num_heads=heads, group=1)
     sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
     with pytest.raises(RuntimeError, match="CUDA error"):
         fnw._launch(x, ws, num_heads=6, n_valid=16, eps=1e-6,
