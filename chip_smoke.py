@@ -9,11 +9,13 @@ Phases (any failure exits non-zero, and no result line is printed):
      source, side by side, sm_90a) and hold each of the eight kernels
      against its plain PyTorch version on the card, at the main path's
      shapes, with the stated tolerance; time both, the bound of the same
-     work, and the one PyTorch call that computes it where there is one.
-     The block kernel also at an f32 residual, with its time by stage
+     work, and the one PyTorch call that computes it where there is one
+     (for both attention kernels scaled_dot_product_attention over the
+     valid keys; fused_attention at both of its per-op shapes). The block
+     kernel also at an f32 residual, with its time by stage
      (torch.profiler over its seven launches) beside the network kernel's
-     (%globaltimer stamps at its grid barriers), and nvcc's -Xptxas -v
-     report and HGMMA count of both. The pool runs at the HIPT
+     (%globaltimer stamps at its grid barriers); nvcc's -Xptxas -v report
+     and HGMMA count of the block, network and attention libraries. The pool runs at the HIPT
      head (L 16) and at the reference CLAM 'small' head (L 512) on a
      [100000, 1024] slide bag; its partial mode at both widths on full
      slide bags.
@@ -565,20 +567,30 @@ def _attn_check(name, what, got, want) -> float:
     return _check(name, what, got, want, (ATTN_TOL[0] * rms, ATTN_TOL[1]))
 
 
+def sdpa_valid_keys(q, k, v, n_valid):
+    """The one PyTorch call that computes what both attention kernels do:
+    scaled_dot_product_attention over the first n_valid keys (the kernels
+    give keys >= n_valid a score of -1e30, whose weight is exactly 0 in
+    f32). q, k, v [BH, N, d] -> [BH, N, d]. The yardstick only; the port
+    never calls it."""
+    import torch.nn.functional as F
+    return F.scaled_dot_product_attention(
+        q[None], k[None, :, :n_valid], v[None, :, :n_valid])[0]
+
+
 def _sdpa_ms(q, k, v, n_valid) -> float:
-    """One scaled_dot_product_attention call with a key mask: the
-    yardstick for both attention kernels, never called by the port."""
+    """library_ms of both attention kernels: sdpa_valid_keys, timed. The
+    call with a boolean key mask over all N keys, which takes SDPA off its
+    flash backend, is logged beside it."""
     import torch.nn.functional as F
     mask = torch.arange(q.shape[1], device=q.device)[None, :] < n_valid
     with torch.inference_mode():
-        ms = gpu_timer(lambda: F.scaled_dot_product_attention(
+        ms = gpu_timer(lambda: sdpa_valid_keys(q, k, v, n_valid))
+        masked = gpu_timer(lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=mask))
-        # without a mask SDPA may take its flash backend: logged beside
-        unmasked = gpu_timer(lambda: F.scaled_dot_product_attention(
-            q[None], k[None], v[None]))
     log(f"scaled_dot_product_attention [{q.shape[0]},{q.shape[1]},"
-        f"{q.shape[2]}]: with key mask {ms:.4f} ms, unmasked (all keys) "
-        f"{unmasked:.4f} ms")
+        f"{q.shape[2]}] valid {n_valid}: over the valid keys {ms:.4f} ms, "
+        f"with a boolean key mask {masked:.4f} ms")
     return ms
 
 
@@ -588,13 +600,37 @@ def _attn_bytes_flops(bh, n, n_valid, d):
     return 4 * bh * n * d * 2, 4.0 * bh * n * n_valid * d
 
 
+def _time_attention(name, kernel, plain, q, k, v, nv, plain_iters):
+    """Kernel, plain version and SDPA over the valid keys on one input,
+    with the bound of the same work."""
+    bh, n, d = q.shape
+    with torch.inference_mode():
+        ms = gpu_timer(lambda: kernel(q, k, v, nv), iters=5 if n > 8192
+                       else 10)
+        pms = gpu_timer(lambda: plain(q, k, v, nv), iters=plain_iters)
+    lib = _sdpa_ms(q, k, v, nv)
+    nbytes, flops = _attn_bytes_flops(bh, n, nv, d)
+    b_ms, b_by = bound(nbytes, flops, BF16_FLOP_S)
+    log(f"{name} [{bh},{n},{d}] valid {nv}: kernel {ms:.4f} ms, plain "
+        f"{pms:.4f} ms, scaled_dot_product_attention over the valid keys "
+        f"{lib:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    return {"shape": f"[{bh},{n},{d}] bf16, valid {nv}", "ms": ms,
+            "plain_ms": pms, "library_ms": lib, "bound_ms": b_ms,
+            "bound_by": b_by, "nbytes": nbytes, "flops": flops}
+
+
+# fused_attention's two shapes on the per-op path, both timed: ViT-256's
+# per-block call at the slice's batch (512 tiles x 6 heads of 64) and
+# ViT-4K's (2 regions x 6 heads of 32)
+ATTN_TIMED = ((3072, 257, 64), (12, 257, 32))
+
+
 def _kernel_attention(dev, g) -> dict:
-    """fused_attention against its plain version: ViT-256's per-block call
-    at the slice's batch (512 tiles x 6 heads, N 257, d 64, timed),
-    ViT-4K's (2 x 6 heads, d 32), a masked ragged shape and, through
-    attention(), a medium N the dispatcher sends to the query-tiled
-    branch."""
-    worst, timed = 0.0, None
+    """fused_attention against its plain version at both per-op shapes
+    (ATTN_TIMED, each timed), a masked ragged shape and, through
+    attention(), a medium N the dispatcher sends to the query-tiled branch
+    (the kernel's streamed mode)."""
+    worst, timed = 0.0, []
     for bh, n, nv, d in [(3072, 257, 257, 64), (12, 257, 257, 32),
                          (4, 100, 37, 64), (8, 1500, 1400, 64)]:
         q, k, v = _qkv(bh, n, d, g, dev)
@@ -604,22 +640,21 @@ def _kernel_attention(dev, g) -> dict:
             torch.cuda.synchronize()
         worst = max(worst, _attn_check("fused_attention", f"[{bh},{n},{d}] "
                                        f"valid {nv}", got, want))
-        if timed is None:
-            with torch.inference_mode():
-                ms = gpu_timer(lambda: fa.fused_attention(q, k, v, nv))
-                pms = gpu_timer(lambda: fa.fused_attention_reference(
-                    q, k, v, nv), iters=3)
-            lib = _sdpa_ms(q, k, v, nv)
-            log(f"fused_attention [{bh},{n},{d}]: kernel {ms:.4f} ms, plain "
-                f"{pms:.4f} ms, scaled_dot_product_attention {lib:.4f} ms")
-            timed = (ms, pms, f"[{bh},{n},{d}] bf16, valid {nv}",
-                     *_attn_bytes_flops(bh, n, nv, d), lib)
+        if (bh, n, d) in ATTN_TIMED:
+            timed.append(_time_attention(
+                "fused_attention", fa.fused_attention,
+                fa.fused_attention_reference, q, k, v, nv, 3))
         del q, k, v, got, want
-    ms, pms, shape, nbytes, flops, lib = timed
-    return record("fused_attention",
-                  "hipt_abmil_atec23_tpu_torch/kernels/csrc/flash_attention.cu",
-                  "hipt_abmil_atec23_tpu/ops/flash_attention.py:50", worst,
-                  ms, pms, shape, nbytes, flops, BF16_FLOP_S, lib)
+    t = timed[0]
+    rec = record("fused_attention",
+                 "hipt_abmil_atec23_tpu_torch/kernels/csrc/flash_attention.cu",
+                 "hipt_abmil_atec23_tpu/ops/flash_attention.py:50", worst,
+                 t["ms"], t["plain_ms"], t["shape"], t["nbytes"], t["flops"],
+                 BF16_FLOP_S, t["library_ms"])
+    rec["also"] = [{k: o[k] for k in ("shape", "ms", "plain_ms", "library_ms",
+                                      "bound_ms", "bound_by")}
+                   for o in timed[1:]]
+    return rec
 
 
 def _kernel_flash(dev, g):
@@ -654,19 +689,15 @@ def _kernel_flash(dev, g):
     with torch.inference_mode():
         want = fa.flash_attention_reference(q, k, v)
         torch.cuda.synchronize()
-        worst = max(worst, _attn_check("flash_attention", f"[{bh},{n},{d}] "
-                                       "via attention()", got, want))
-        ms = gpu_timer(lambda: fa.flash_attention(q, k, v), iters=5)
-        pms = gpu_timer(lambda: fa.flash_attention_reference(q, k, v),
-                        iters=2)
-    lib = _sdpa_ms(q, k, v, n)
-    log(f"flash_attention [{bh},{n},{d}]: kernel {ms:.4f} ms, plain "
-        f"{pms:.4f} ms, scaled_dot_product_attention {lib:.4f} ms")
+    worst = max(worst, _attn_check("flash_attention", f"[{bh},{n},{d}] "
+                                   "via attention()", got, want))
+    t = _time_attention("flash_attention", fa.flash_attention,
+                        fa.flash_attention_reference, q, k, v, n, 2)
     rec = record("flash_attention",
                  "hipt_abmil_atec23_tpu_torch/kernels/csrc/flash_attention.cu",
                  "hipt_abmil_atec23_tpu/ops/flash_attention.py:128", worst,
-                 ms, pms, f"[{bh},{n},{d}] bf16, valid {n}",
-                 *_attn_bytes_flops(bh, n, n, d), BF16_FLOP_S, lib)
+                 t["ms"], t["plain_ms"], t["shape"], t["nbytes"], t["flops"],
+                 BF16_FLOP_S, t["library_ms"])
     return rec, counts
 
 
@@ -861,8 +892,9 @@ def _kernel_network(dev, regions, g):
 
 def _kernel_label(mangled: str) -> str:
     """gemm_kernel<3>, network_kernel<bf16,64>, ... from a mangled name."""
-    m = re.search(r"(layernorm_kernel|gemm_kernel|attention_kernel|"
-                  r"network_kernel)I(.*?)EE", mangled)
+    m = re.search(r"(layernorm_kernel|gemm_kernel|fused_attention_kernel|"
+                  r"flash_attention_kernel|attention_kernel|network_kernel)"
+                  r"I(.*?)EE", mangled)
     if not m:
         return mangled
     args = ["bf16" if a.startswith("13") else "f32" if a == "f" else a[2:]
@@ -882,6 +914,8 @@ def build_report(build, name: str) -> None:
                 label = _kernel_label(m.group(1))
             elif label and ("spill" in line or "Used" in line):
                 log(f"ptxas {name} {label}: {line.split(':')[-1].strip()}")
+            elif "warning" in line.lower():
+                log(f"ptxas {name}: {line.strip()}")
     cob = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
     if os.path.exists(cob):
         sass = subprocess.run(
@@ -906,7 +940,7 @@ def phase_kernels(dev, dct_slide, regions) -> dict:
         build.load(name)
     log(f"kernels built in {time.perf_counter() - t0:.1f} s "
         f"({build.BUILD_DIR})")
-    for name in ("fused_block", "fused_network"):
+    for name in ("fused_block", "fused_network", "flash_attention"):
         build_report(build, name)
     g = torch.Generator().manual_seed(0)
     records = {"fused_block": _kernel_block(dev, g),

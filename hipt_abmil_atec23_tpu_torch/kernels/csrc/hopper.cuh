@@ -1,0 +1,487 @@
+// Hopper (sm_90a) building blocks shared by the port's CUDA sources that
+// run on wgmma and TMA: the ViT block (vit_block.cuh) and the attention
+// kernels (flash_attention.cu).
+//
+//   PTX        mbarrier init / expect_tx / arrive / wait, 3-D TMA tile
+//              loads, cp.async, named barriers, ex2
+//   wgmma      descriptors of 128- and 64-byte swizzled tiles (K- or
+//              MN-major), fence / commit / wait, m64n{128,64,16}k16 with
+//              both operands K-major in shared memory, m64n{64,32}k16
+//              with A from registers and B MN-major
+//   mma.sync   ldmatrix, m16n8k16, bf16 packing, quad reductions
+//   softmax    one online-softmax step over a score tile in the
+//              accumulator layout that mma.sync and wgmma share (16 rows
+//              per warp, rows g and g + 8 per lane): keys >= n_valid at
+//              -1e30, e = exp2(s c - m) with c = scale log2(e) folded into
+//              one FMA, m, alpha and this lane's share of l in registers;
+//              P packed to bf16 A fragments, optionally as e / sum e by
+//              folding log2(sum e) into the exponent; O stored as bf16
+//              pairs straight from the accumulators
+//   host       cuTensorMapEncodeTiled from the loaded driver
+#pragma once
+
+#include <cuda.h>  // CUtensorMap (the type only; nothing links libcuda)
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <dlfcn.h>
+#include <stdint.h>
+
+namespace hk {
+
+typedef __nv_bfloat16 bf16;
+
+constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// ---------------------------------------------------------------- PTX
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// after thread 0 initialised the barriers, before a __syncthreads
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// spin until the phase of parity ``parity`` has completed; a wait that
+// never ends (a copy that never lands) traps, so the launch fails with an
+// error instead of hanging the card
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0, tries = 0;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (++tries == (1u << 30)) __trap();
+  } while (!done);
+}
+
+// 3-D TMA tile load (coordinates innermost first), completing on ``bar``
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(smem_u32(bar))
+      : "memory");
+}
+
+// order this thread's earlier generic-proxy shared-memory accesses before
+// later async-proxy ones (TMA writes into memory another stage used)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// 16-byte cp.async; zero-fills the destination when ``valid`` is false
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// named barrier ``id`` (1..15) over ``n`` threads: sync waits for them all,
+// arrive counts this warp in without waiting
+__device__ __forceinline__ void named_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ unsigned long long globaltimer() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// 2^x on the special-function unit (one MUFU.EX2; denormal results flush
+// to 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
+}
+
+// ---------------------------------------------------------------- wgmma
+// Shared-memory descriptor of a tile whose rows are ``row_bytes`` (128 or
+// 64) long, written with the swizzle of that width (TMA's SWIZZLE_128B /
+// SWIZZLE_64B), 8-row groups 8 * row_bytes apart. The same descriptor
+// serves a K-major operand (rows along M or N, K within the row) and an
+// MN-major one (rows along K): in both the tile is one swizzle atom wide,
+// so the leading byte offset is unused.
+__device__ __forceinline__ uint64_t swz_desc(const void* p,
+                                             uint32_t row_bytes) {
+  const uint64_t layout = row_bytes == 128 ? 1 : 2;
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)((8 * row_bytes) >> 4) << 32) | (layout << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// give up (dec) or take (inc) registers for the calling warpgroup, so a
+// producer warpgroup's registers go to its consumers
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// keep the compiler from touching registers a wgmma in flight writes
+// before the wait that ends it
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+f"(r[i][j])::"memory");
+}
+
+// d[64 x N] (+)= A[64 x 16] . B[N x 16]^T for N = 128, 64, 16, both K-major
+// in shared memory, d in n8 blocks (d[j][0..1] row g, d[j][2..3] row g + 8
+// of each warp's 16, columns 8 j + 2 (lane % 4) ..); acc = 0 overwrites d
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[16][4],
+                                                 uint64_t da, uint64_t db,
+                                                 int acc = 1) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, "
+      "%42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[8][4],
+                                                uint64_t da, uint64_t db,
+                                                int acc = 1) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_m64n16k16(float (&d)[2][4],
+                                                uint64_t da, uint64_t db,
+                                                int acc = 1) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// d[64 x 64] (+)= A[64 x 16] . B: A from registers (a[0..3], each warp's
+// 16 rows in the mma.sync m16n8k16 A-fragment order), B MN-major
+// in shared memory (imm-trans-b = 1); acc = 0 overwrites d
+__device__ __forceinline__ void wgmma_m64n64k16_rm(float (&d)[8][4],
+                                                   const uint32_t* a,
+                                                   uint64_t db, int acc = 1) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
+// d[64 x 32] (+)= A[64 x 16] . B: A from registers (a[0..3], each warp's
+// 16 rows in the mma.sync m16n8k16 A-fragment order), B MN-major
+// in shared memory (imm-trans-b = 1); acc = 0 overwrites d
+__device__ __forceinline__ void wgmma_m64n32k16_rm(float (&d)[4][4],
+                                                   const uint32_t* a,
+                                                   uint64_t db, int acc = 1) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
+// ---------------------------------------------------------------- mma.sync
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// c[16 x 8] += a[16 x 16] . b[16 x 8], bf16 in, f32 accumulate
+__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ void store_pair(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// max and sum over the four lanes that hold one accumulator row
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// ---------------------------------------------------------------- softmax
+// O rows [r0, r0 + 16) rounded to bf16 into rows ``ld`` apart (rows past n
+// dropped)
+template <int HD>
+__device__ __forceinline__ void store_o(bf16* out, int ld,
+                                        const float (&o)[HD / 8][4], int r0,
+                                        int n) {
+  const int lane = threadIdx.x & 31;
+  const int ra = r0 + (lane >> 2), rb = ra + 8;
+#pragma unroll
+  for (int dn = 0; dn < HD / 8; ++dn) {
+    bf16* col = out + dn * 8 + 2 * (lane & 3);
+    if (ra < n) store_pair(col + (size_t)ra * ld, o[dn][0], o[dn][1]);
+    if (rb < n) store_pair(col + (size_t)rb * ld, o[dn][2], o[dn][3]);
+  }
+}
+
+// keys >= n_valid (padding) at -1e30; this lane's columns 2 (lane % 4), +1
+// of NT n8 blocks (mma.sync or wgmma accumulator order: [nt][0..3] rows g,
+// g, g + 8, g + 8)
+template <int NT>
+__device__ __forceinline__ void mask_keys(float (&s)[NT][4], int key0,
+                                          int n_valid) {
+  const int c = key0 + 2 * (threadIdx.x & 3);
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (c + nt * 8 + (i & 1) >= n_valid) s[nt][i] = kNegInf;
+}
+
+// One online-softmax step over a score tile of NT n8 blocks (keys key0
+// ..) of rows g and g + 8, keys >= n_valid masked: m (kept times c =
+// scale log2(e)) takes the tile's row max, alpha = exp2(m_prev - m), s
+// becomes p = exp2(s c - m) and l = l alpha + this lane's sum of p (the
+// caller sums l over the row's four lanes where it needs the whole row)
+template <int NT>
+__device__ __forceinline__ void softmax_step(float (&s)[NT][4], float (&m)[2],
+                                             float (&l)[2], float (&alpha)[2],
+                                             int key0, int n_valid, float c) {
+  if (key0 + 8 * NT > n_valid) mask_keys<NT>(s, key0, n_valid);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float mx = kNegInf;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+      mx = fmaxf(mx, fmaxf(s[nt][2 * r], s[nt][2 * r + 1]));
+    const float mn = fmaxf(m[r], quad_max(mx) * c);
+    alpha[r] = ex2(m[r] - mn);
+    m[r] = mn;
+    float e = 0.f;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      s[nt][2 * r] = ex2(fmaf(s[nt][2 * r], c, -mn));
+      s[nt][2 * r + 1] = ex2(fmaf(s[nt][2 * r + 1], c, -mn));
+      e += s[nt][2 * r] + s[nt][2 * r + 1];
+    }
+    l[r] = l[r] * alpha[r] + e;
+  }
+}
+
+// the bf16 A fragments of P over the tile's keys, k16 step kk in
+// p[4 kk .. 4 kk + 3], from p in accumulator order; with mm set, p =
+// exp2(s c - mm) is taken first (mm = m + log2(l): P = e / sum e)
+template <int NT>
+__device__ __forceinline__ void pack_p(uint32_t (&p)[2 * NT],
+                                       const float (&s)[NT][4]) {
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    p[2 * nt] = pack_bf16(s[nt][0], s[nt][1]);
+    p[2 * nt + 1] = pack_bf16(s[nt][2], s[nt][3]);
+  }
+}
+template <int NT>
+__device__ __forceinline__ void pack_p(uint32_t (&p)[2 * NT],
+                                       const float (&s)[NT][4],
+                                       const float (&mm)[2], float c) {
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    p[2 * nt] = pack_bf16(ex2(fmaf(s[nt][0], c, -mm[0])),
+                          ex2(fmaf(s[nt][1], c, -mm[0])));
+    p[2 * nt + 1] = pack_bf16(ex2(fmaf(s[nt][2], c, -mm[1])),
+                              ex2(fmaf(s[nt][3], c, -mm[1])));
+  }
+}
+
+// mm = m + log2(l) of both rows, l summed over the row's four lanes
+__device__ __forceinline__ void normaliser(float (&mm)[2],
+                                           const float (&m)[2],
+                                           const float (&l)[2]) {
+  mm[0] = m[0] + __log2f(quad_sum(l[0]));
+  mm[1] = m[1] + __log2f(quad_sum(l[1]));
+}
+
+// ---------------------------------------------------------------- host
+// cuTensorMapEncodeTiled from the driver the CUDA runtime already loaded,
+// so the library needs no link against libcuda and no runtime-version
+// specific entry-point query
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+inline EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (!fn) {
+    void* lib = dlopen("libcuda.so.1", RTLD_LAZY | RTLD_NOLOAD);
+    if (!lib) lib = dlopen("libcuda.so.1", RTLD_LAZY);
+    if (lib)
+      fn = reinterpret_cast<EncodeTiledFn>(
+          dlsym(lib, "cuTensorMapEncodeTiled"));
+  }
+  return fn;
+}
+
+// A bf16 tensor [depth, rows, cols] (cols contiguous) as a TMA map whose
+// boxes are box_cols x box_rows of one depth slice, with ``swizzle`` and
+// zeros outside the tensor. False when the driver refuses it.
+inline bool tensor_map_3d(CUtensorMap* map, const void* ptr, int cols,
+                          int rows, int depth, int box_cols, int box_rows,
+                          CUtensorMapSwizzle swizzle) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (!fn) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows,
+                              (cuuint64_t)depth};
+  const cuuint64_t strides[2] = {(cuuint64_t)cols * sizeof(bf16),
+                                 (cuuint64_t)cols * rows * sizeof(bf16)};
+  const cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
+            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+}  // namespace hk

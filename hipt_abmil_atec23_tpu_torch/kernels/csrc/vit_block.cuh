@@ -17,12 +17,15 @@
 //                   + b in f32, x bf16 or f32), FC1 (bf16(GELU_erf(acc +
 //                   b))), FC2 ((x2 + acc) + b, stored bf16 or f32)
 //   attention_head  one (image, head): K and V copied into shared memory
-//                   once; every warp takes 16-query tiles in turn; f32
-//                   scores in registers, keys >= n_valid at -1e30, two
-//                   passes over 64-key chunks (f32 row max and sum, then
-//                   P = bf16(e / sum e) and O += P . V in f32) -> bf16
-//                   [B, n_pad, D]; e = exp2(s log2(e) - max s log2(e)) on
-//                   the special-function unit, 1 / sum e once per row
+//                   once (rows hd + 8 apart: conflict-free ldmatrix); every
+//                   warp takes 16-query tiles in turn; f32 scores in
+//                   mma.sync registers, keys >= n_valid at -1e30, two passes
+//                   (f32 row max and sum, then P = bf16(e / sum e) and O +=
+//                   P . V in f32) in 64- and 32-key slices, then 16-key
+//                   slices to n_valid rounded to 16 -> bf16 [B, n_pad, D];
+//                   e = exp2(s log2(e) - max s log2(e)) on the
+//                   special-function unit, 1 / sum e folded into the
+//                   exponent (hopper.cuh's softmax step)
 //
 // The GEMM is warp-specialised. One producer warp copies 128 x 64 bf16
 // tiles of A and W with TMA into a ring of GEMM_STAGES stages (128-byte
@@ -31,27 +34,20 @@
 // in, f32 accumulate in registers) on 64 rows of the tile and store the
 // epilogue straight from the accumulators as bf16x2 / float2 pairs. TMA
 // fills rows past M or N and columns past K with zeros, which covers every
-// ragged edge (M = B * n_pad, N = 288 at D = 96, K = 96). Attention runs on
-// mma.sync m16n8k16 with ldmatrix fragments from a padded K/V layout (row
-// stride hd + 8: conflict-free).
+// ragged edge (M = B * n_pad, N = 288 at D = 96, K = 96). The PTX, the TMA
+// map encoder and the softmax step are in hopper.cuh, which the attention
+// kernels (flash_attention.cu) share.
 //
 // Pointers carry no __restrict__: in the persistent kernel the same buffers
 // are written in one stage and read in the next, so no load may go through
 // the read-only (non-coherent) cache.
 #pragma once
 
-#include <cuda.h>  // CUtensorMap (the type only; nothing links libcuda)
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <dlfcn.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace vit {
 
-typedef __nv_bfloat16 bf16;
-
-constexpr float kNegInf = -1e30f;
-constexpr float kLog2e = 1.4426950408889634f;
+using namespace hk;
 
 // ---------------------------------------------------------------- layernorm
 constexpr int LN_MAX_PER_LANE = 12;  // D <= 384
@@ -139,89 +135,6 @@ __device__ __forceinline__ void layernorm_rows2(const TIn* x, const float* g,
   }
 }
 
-// ---------------------------------------------------------------- PTX
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
-                                               uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-
-// spin until the phase of parity ``parity`` has completed; a wait that
-// never ends (a copy that never lands) traps, so the launch fails with an
-// error instead of hanging the card
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  uint32_t done = 0, tries = 0;
-  do {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-    if (++tries == (1u << 30)) __trap();
-  } while (!done);
-}
-
-// 3-D TMA tile load (coordinates innermost first), completing on ``bar``
-__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
-                                            uint64_t* bar, int c0, int c1,
-                                            int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::"
-      "complete_tx::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(
-          smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
-      "r"(smem_u32(bar))
-      : "memory");
-}
-
-// order this thread's earlier generic-proxy shared-memory accesses before
-// later async-proxy ones (TMA writes into memory another stage used)
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// 16-byte cp.async; zero-fills the destination when ``valid`` is false
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-__device__ __forceinline__ unsigned long long globaltimer() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
 // ---------------------------------------------------------------- GEMM
 // C[M, N] = A[M, K] . W[N, K]^T on 128 x 128 tiles, K in steps of 64
 constexpr int BM = 128, BN = 128, BK = 64;
@@ -234,11 +147,6 @@ constexpr uint32_t STAGE_BYTES = 2 * TILE_BYTES;         // A and W tiles
 // the ring, plus slack to align the dynamic base to the 1024 bytes the
 // 128-byte swizzle pattern repeats over
 constexpr size_t GEMM_SMEM = (size_t)GEMM_STAGES * STAGE_BYTES + 1024;
-
-__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-  return reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
-}
 
 // The copy ring's barriers, the tile each stage holds, and this thread's
 // count of stages through it. Producer and consumers walk the same stages,
@@ -259,7 +167,7 @@ __device__ __forceinline__ Ring ring_init(uint64_t* bars, int* slots) {
       mbar_init(&bars[s], 1);
       mbar_init(&bars[GEMM_STAGES + s], 4 * GEMM_CONSUMERS);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
   return Ring{bars, bars + GEMM_STAGES, slots, 0u};
@@ -272,52 +180,6 @@ struct Sched {
   int first, step;
   int* counter;
 };
-
-// wgmma shared-memory descriptor of a K-major tile with 128-byte swizzle:
-// rows of 128 bytes, 8-row groups 1024 bytes apart
-__device__ __forceinline__ uint64_t smem_desc(const void* p) {
-  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// d[64 x 128] += A[64 x 16] . B[128 x 16]^T, both K-major in shared memory
-__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
-                                                 uint64_t db) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
-      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
-      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
-      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
-      "%62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
-}
 
 enum Epi { EPI_QKV = 0, EPI_PROJ = 1, EPI_FC1 = 2, EPI_FC2 = 3 };
 
@@ -336,16 +198,12 @@ __device__ __forceinline__ float gelu_erf(float v) {
   return v * 0.5f * (1.f + erff(v * 0.70710678118654752f));
 }
 
-__device__ __forceinline__ void store_pair(bf16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-
 // The accumulators of one consumer thread: rows r0 and r0 + 8, columns
-// n0 + 8 j + 2 (lane % 4) and the next (d[4j..4j+1] on row r0, d[4j+2..4j+3]
-// on row r0 + 8). N is even, so a pair never straddles the edge.
+// n0 + 8 j + 2 (lane % 4) and the next (d[j][0..1] on row r0, d[j][2..3] on
+// row r0 + 8). N is even, so a pair never straddles the edge.
 template <int EPI>
 __device__ __forceinline__ void store_tile(const EpiArgs& ep,
-                                           const float (&d)[64], int M,
+                                           const float (&d)[16][4], int M,
                                            int N, int r0, int n0) {
   const int cq = 2 * (threadIdx.x & 3);
   size_t qrow[2] = {0, 0};  // QKV: token offset of each row in its head
@@ -377,7 +235,7 @@ __device__ __forceinline__ void store_tile(const EpiArgs& ep,
     for (int h = 0; h < 2; ++h) {
       const int m = r0 + 8 * h;
       if (m >= M) continue;
-      const float a0 = d[4 * j + 2 * h], a1 = d[4 * j + 2 * h + 1];
+      const float a0 = d[j][2 * h], a1 = d[j][2 * h + 1];
       const size_t idx = (size_t)m * N + n;
       if (EPI == EPI_QKV) {
         float v0 = a0 + bias.x, v1 = a1 + bias.y;
@@ -462,7 +320,7 @@ __device__ __forceinline__ void gemm_tiles(const CUtensorMap* amap,
     return;
   }
   const int wg = warp >> 2;  // consumer warpgroup: rows wg * 64 of a tile
-  float d[64];
+  float d[BN / 8][4];
   for (;;) {
     int s = ring.it % GEMM_STAGES;
     mbar_wait(&ring.full[s], (ring.it / GEMM_STAGES) & 1);
@@ -474,14 +332,15 @@ __device__ __forceinline__ void gemm_tiles(const CUtensorMap* amap,
     }
     const int m0 = (tile / tn) * BM, n0 = (tile % tn) * BN;
 #pragma unroll
-    for (int i = 0; i < 64; ++i) d[i] = 0.f;
+    for (int j = 0; j < BN / 8; ++j)
+      d[j][0] = d[j][1] = d[j][2] = d[j][3] = 0.f;
     int prev = -1;
     for (int k = 0; k < ksteps; ++k, ++ring.it) {
       s = ring.it % GEMM_STAGES;
       if (k > 0) mbar_wait(&ring.full[s], (ring.it / GEMM_STAGES) & 1);
       unsigned char* st = tiles + s * STAGE_BYTES;
-      const uint64_t da = smem_desc(st + wg * 64 * 128);
-      const uint64_t db = smem_desc(st + TILE_BYTES);
+      const uint64_t da = swz_desc(st + wg * 64 * 128, 128);
+      const uint64_t db = swz_desc(st + TILE_BYTES, 128);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk)  // 32 bytes along K per step
@@ -500,46 +359,14 @@ __device__ __forceinline__ void gemm_tiles(const CUtensorMap* amap,
 }
 
 // ---------------------------------------------------------------- host
-// cuTensorMapEncodeTiled from the driver the CUDA runtime already loaded,
-// so the library needs no link against libcuda and no runtime-version
-// specific entry-point query
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
-                                  cuuint32_t, void*, const cuuint64_t*,
-                                  const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave,
-                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                  CUtensorMapFloatOOBfill);
-
-inline EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (!fn) {
-    void* lib = dlopen("libcuda.so.1", RTLD_LAZY | RTLD_NOLOAD);
-    if (!lib) lib = dlopen("libcuda.so.1", RTLD_LAZY);
-    if (lib)
-      fn = reinterpret_cast<EncodeTiledFn>(
-          dlsym(lib, "cuTensorMapEncodeTiled"));
-  }
-  return fn;
-}
-
 // A bf16 tensor [depth, rows, cols] (cols contiguous) as a TMA map whose
 // boxes are the GEMM's 64-column x 128-row tiles of one depth slice, with
 // the 128-byte swizzle wgmma reads and zeros outside the tensor. False when
 // the driver refuses it.
 inline bool tile_map(CUtensorMap* map, const void* ptr, int cols, int rows,
                      int depth) {
-  const EncodeTiledFn fn = encode_tiled();
-  if (!fn) return false;
-  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows,
-                              (cuuint64_t)depth};
-  const cuuint64_t strides[2] = {(cuuint64_t)cols * sizeof(bf16),
-                                 (cuuint64_t)cols * rows * sizeof(bf16)};
-  const cuuint32_t box[3] = {BK, BM, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
-            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return tensor_map_3d(map, ptr, cols, rows, depth, BK, BM,
+                       CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 // ---------------------------------------------------------------- attention
@@ -553,35 +380,25 @@ __host__ __device__ inline size_t att_smem(int n_pad, int hd) {
   return 2 * (size_t)att_rows(n_pad) * (hd + 8) * sizeof(bf16);
 }
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-// c[16 x 8] += a[16 x 16] . b[16 x 8], bf16 in, f32 accumulate
-__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
-  return *reinterpret_cast<uint32_t*>(&v);
+// this warp's 16 query rows [r0, r0 + 16) of q [n, HD] as m16n8k16 A
+// fragments (rows past n zero)
+template <int HD>
+__device__ __forceinline__ void load_q_frags(uint32_t (&qa)[HD / 16][4],
+                                             const bf16* q, int r0, int n) {
+  const int lane = threadIdx.x & 31;
+  const int ra = r0 + (lane >> 2), rb = ra + 8, cq = 2 * (lane & 3);
+#pragma unroll
+  for (int kc = 0; kc < HD / 16; ++kc) {
+    const int c = kc * 16 + cq;
+    qa[kc][0] = ra < n ? *reinterpret_cast<const uint32_t*>(
+                             q + (size_t)ra * HD + c) : 0u;
+    qa[kc][1] = rb < n ? *reinterpret_cast<const uint32_t*>(
+                             q + (size_t)rb * HD + c) : 0u;
+    qa[kc][2] = ra < n ? *reinterpret_cast<const uint32_t*>(
+                             q + (size_t)ra * HD + c + 8) : 0u;
+    qa[kc][3] = rb < n ? *reinterpret_cast<const uint32_t*>(
+                             q + (size_t)rb * HD + c + 8) : 0u;
+  }
 }
 
 // S[16 x 8 NT] = Q . K[key0 .. key0 + 8 NT)^T for one warp's 16 rows
@@ -594,51 +411,93 @@ __device__ __forceinline__ void qk_scores(float (&s)[NT][4],
 #pragma unroll
   for (int nt = 0; nt < NT; ++nt) {
     s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-    const bf16* row = Ks + (key0 + nt * 8 + (lane & 7)) * LD + (lane >> 3) * 8;
+    const int r = key0 + nt * 8 + (lane & 7);
 #pragma unroll
     for (int kc = 0; kc < HD / 16; kc += 2) {
       uint32_t b[4];  // b0, b1 of columns kc and kc + 1
-      ldmatrix_x4(b, row + kc * 16);
+      ldmatrix_x4(b, Ks + r * LD + 8 * (2 * kc + (lane >> 3)));
       mma16816(s[nt], qa[kc], b[0], b[1]);
       mma16816(s[nt], qa[kc + 1], b[2], b[3]);
     }
   }
 }
 
-// keys >= n_valid (padding) at -1e30; this lane's columns 2 (lane % 4), +1
-template <int NT>
-__device__ __forceinline__ void mask_keys(float (&s)[NT][4], int key0,
-                                          int n_valid) {
-  const int c = key0 + 2 * (threadIdx.x & 3);
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      if (c + nt * 8 + (i & 1) >= n_valid) s[nt][i] = kNegInf;
+// pass 1 over keys [k0, k0 + 8 NT) of one warp's 16 rows
+template <int HD, int NT>
+__device__ __forceinline__ void stats_slice(float (&m)[2], float (&l)[2],
+                                            const uint32_t (&qa)[HD / 16][4],
+                                            const bf16* Ks, int k0,
+                                            int n_valid, float c) {
+  float s[NT][4], alpha[2];
+  qk_scores<HD, NT>(s, qa, Ks, k0);
+  softmax_step<NT>(s, m, l, alpha, k0, n_valid, c);
 }
 
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+// pass 2 over keys [k0, k0 + 8 NT), NT 2 or 4, of one warp's 16 rows:
+// P = bf16(e / sum e) and O += P . V in f32
+template <int HD, int NT>
+__device__ __forceinline__ void pv_slice(float (&o)[HD / 8][4],
+                                         const uint32_t (&qa)[HD / 16][4],
+                                         const bf16* Ks, const bf16* Vs,
+                                         int k0, int n_valid, float c,
+                                         const float (&mm)[2]) {
+  constexpr int LD = HD + 8;
+  const int lane = threadIdx.x & 31;
+  float s[NT][4];
+  qk_scores<HD, NT>(s, qa, Ks, k0);
+  if (k0 + 8 * NT > n_valid) mask_keys<NT>(s, k0, n_valid);
+  uint32_t p[2 * NT];
+  pack_p<NT>(p, s, mm, c);
+#pragma unroll
+  for (int kk = 0; kk < NT / 2; ++kk) {
+    const int vr = k0 + 16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8;
+#pragma unroll
+    for (int dn = 0; dn < HD / 8; dn += 2) {
+      uint32_t vb[4];  // b0, b1 of d-tiles dn and dn + 1
+      ldmatrix_x4_trans(vb, Vs + vr * LD + 8 * (dn + (lane >> 4)));
+      mma16816(o[dn], &p[4 * kk], vb[0], vb[1]);
+      mma16816(o[dn + 1], &p[4 * kk], vb[2], vb[3]);
+    }
+  }
 }
 
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+// O of one warp's 16 query rows against the first ceil(n_valid / 16) * 16
+// rows of K and V (rows past N must be zeros): pass 1 in 64-key slices,
+// pass 2 in 32-key slices, each then in 16-key slices to the end
+template <int HD>
+__device__ __forceinline__ void attend_rows(float (&o)[HD / 8][4],
+                                            const uint32_t (&qa)[HD / 16][4],
+                                            const bf16* Ks, const bf16* Vs,
+                                            int n_valid, float c) {
+  const int rows = (n_valid + 15) / 16 * 16;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, mm[2];
+  int k0 = 0;
+  for (; k0 + 64 <= rows; k0 += 64)
+    stats_slice<HD, 8>(m, l, qa, Ks, k0, n_valid, c);
+  for (; k0 < rows; k0 += 16)
+    stats_slice<HD, 2>(m, l, qa, Ks, k0, n_valid, c);
+  normaliser(mm, m, l);
+#pragma unroll
+  for (int dn = 0; dn < HD / 8; ++dn)
+    o[dn][0] = o[dn][1] = o[dn][2] = o[dn][3] = 0.f;
+  for (k0 = 0; k0 + 32 <= rows; k0 += 32)
+    pv_slice<HD, 4>(o, qa, Ks, Vs, k0, n_valid, c, mm);
+  if (k0 < rows) pv_slice<HD, 2>(o, qa, Ks, Vs, k0, n_valid, c, mm);
 }
 
 // Head h of image b: any blockDim.x that is a multiple of 32, att_smem
 // bytes of dynamic shared memory at ``smem``. q (already scaled), k, v from
-// the head-major qkv [3, B, H, n_pad, HD]; out [B, n_pad, H * HD].
+// the head-major qkv [3, B, H, n_pad, HD]; out [B, n_pad, H * HD]. K and V
+// are copied in once (rows padded to hd + 8); every warp then takes
+// 16-query tiles in turn through attend_rows.
 template <int HD>
 __device__ __forceinline__ void attention_head(const bf16* qkv, bf16* out,
                                                int B, int H, int n_pad,
                                                int n_valid, int h, int b,
                                                unsigned char* smem) {
-  constexpr int LD = HD + 8;
+  constexpr int LD = HD + 8;   // K and V rows: conflict-free ldmatrix
   constexpr int VPR = HD / 8;  // 16-byte vectors per row
-  const int chunks = (n_valid + 63) / 64;
-  const int rows = chunks * 64;  // keys past this are never read
+  const int rows = (n_valid + 15) / 16 * 16;  // keys past this are never read
   bf16* Ks = reinterpret_cast<bf16*>(smem);
   bf16* Vs = Ks + att_rows(n_pad) * LD;
   const size_t head = (size_t)n_pad * HD;
@@ -657,92 +516,15 @@ __device__ __forceinline__ void attention_head(const bf16* qkv, bf16* out,
   cp_async_wait_all();
   __syncthreads();
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, cq = 2 * (lane & 3);
   const int D = H * HD;
-  for (int r0 = warp * 16; r0 < n_pad; r0 += (blockDim.x >> 5) * 16) {
-    // this warp's 16 query rows as m16n8k16 A fragments (rows past n_pad 0)
+  bf16* ob = out + (size_t)b * n_pad * D + h * HD;  // heads interleaved
+  for (int r0 = (threadIdx.x >> 5) * 16; r0 < n_pad;
+       r0 += (blockDim.x >> 5) * 16) {
     uint32_t qa[HD / 16][4];
-    const int ra = r0 + g, rb = r0 + g + 8;
-#pragma unroll
-    for (int kc = 0; kc < HD / 16; ++kc) {
-      const int c = kc * 16 + cq;
-      qa[kc][0] = ra < n_pad ? *reinterpret_cast<const uint32_t*>(
-                                   qg + (size_t)ra * HD + c) : 0u;
-      qa[kc][1] = rb < n_pad ? *reinterpret_cast<const uint32_t*>(
-                                   qg + (size_t)rb * HD + c) : 0u;
-      qa[kc][2] = ra < n_pad ? *reinterpret_cast<const uint32_t*>(
-                                   qg + (size_t)ra * HD + c + 8) : 0u;
-      qa[kc][3] = rb < n_pad ? *reinterpret_cast<const uint32_t*>(
-                                   qg + (size_t)rb * HD + c + 8) : 0u;
-    }
-
-    // pass 1: f32 max and sum of exp(s - max) of rows g and g + 8, online;
-    // exp(s - m) is taken as exp2(s log2(e) - m log2(e)), m kept scaled
-    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-    for (int ch = 0; ch < chunks; ++ch) {
-      float s[8][4];
-      qk_scores<HD, 8>(s, qa, Ks, ch * 64);
-      mask_keys<8>(s, ch * 64, n_valid);
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        float mx = kNegInf;
-#pragma unroll
-        for (int nt = 0; nt < 8; ++nt)
-          mx = fmaxf(mx, fmaxf(s[nt][2 * r], s[nt][2 * r + 1]));
-        const float mn = fmaxf(m[r], quad_max(mx) * kLog2e);
-        float e = 0.f;
-#pragma unroll
-        for (int nt = 0; nt < 8; ++nt)
-          e += exp2f(fmaf(s[nt][2 * r], kLog2e, -mn)) +
-               exp2f(fmaf(s[nt][2 * r + 1], kLog2e, -mn));
-        l[r] = l[r] * exp2f(m[r] - mn) + quad_sum(e);
-        m[r] = mn;
-      }
-    }
-    const float inv[2] = {1.f / l[0], 1.f / l[1]};
-
-    // pass 2: P = bf16(exp(s - m) / l) 32 keys at a time, O += P . V in f32
+    load_q_frags<HD>(qa, qg, r0, n_pad);
     float o[HD / 8][4];
-#pragma unroll
-    for (int dn = 0; dn < HD / 8; ++dn)
-      o[dn][0] = o[dn][1] = o[dn][2] = o[dn][3] = 0.f;
-    for (int k0 = 0; k0 < rows; k0 += 32) {
-      float s[4][4];
-      qk_scores<HD, 4>(s, qa, Ks, k0);
-      mask_keys<4>(s, k0, n_valid);
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        uint32_t pa[4];  // A fragment: rows g, g + 8; keys 2 (lane % 4) (+8)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const float* sj = s[2 * half + j];
-          pa[2 * j] = pack_bf16(exp2f(fmaf(sj[0], kLog2e, -m[0])) * inv[0],
-                                exp2f(fmaf(sj[1], kLog2e, -m[0])) * inv[0]);
-          pa[2 * j + 1] =
-              pack_bf16(exp2f(fmaf(sj[2], kLog2e, -m[1])) * inv[1],
-                        exp2f(fmaf(sj[3], kLog2e, -m[1])) * inv[1]);
-        }
-        const bf16* vrow = Vs + (k0 + 16 * half + (lane & 7) +
-                                 ((lane >> 3) & 1) * 8) * LD +
-                           (lane >> 4) * 8;
-#pragma unroll
-        for (int dn = 0; dn < HD / 8; dn += 2) {
-          uint32_t vb[4];  // b0, b1 of d-tiles dn and dn + 1
-          ldmatrix_x4_trans(vb, vrow + dn * 8);
-          mma16816(o[dn], pa, vb[0], vb[1]);
-          mma16816(o[dn + 1], pa, vb[2], vb[3]);
-        }
-      }
-    }
-
-    // heads interleaved: out[b, t, h * HD + d], O rounded to bf16
-#pragma unroll
-    for (int dn = 0; dn < HD / 8; ++dn) {
-      bf16* col = out + (size_t)b * n_pad * D + h * HD + dn * 8 + cq;
-      if (ra < n_pad) store_pair(col + (size_t)ra * D, o[dn][0], o[dn][1]);
-      if (rb < n_pad) store_pair(col + (size_t)rb * D, o[dn][2], o[dn][3]);
-    }
+    attend_rows<HD>(o, qa, Ks, Vs, n_valid, kLog2e);
+    store_o<HD>(ob, D, o, r0, n_pad);
   }
 }
 

@@ -8,10 +8,13 @@ Counterpart of hipt_abmil_atec23_tpu/ops/flash_attention.py:
   storage-dtype operands, scaled after the product, keys >= n_valid at
   -1e30, full-row f32 softmax, p normalised and rounded to v's dtype, f32
   P . V, output in q's dtype. ``group`` and ``block_q`` shape only the TPU
-  grid; the card runs every shape through one two-pass kernel.
+  grid; the card runs every shape through one two-pass kernel, with each
+  head's K and V resident in shared memory up to RESIDENT_KEYS valid keys
+  and streamed in 64-key chunks past them.
 - ``flash_attention`` (TPU ``_flash_kernel``): the online-softmax
   recurrence in f32 with p not normalised before P . V and a final
-  division by max(l, 1e-30).
+  division by max(l, 1e-30); the card kernel walks the keys in tiles of
+  FLASH_KEY_TILE.
 - ``attention``: the JAX dispatcher's three branches at the same
   boundaries, so a shape takes the counterpart of the same TPU kernel.
 
@@ -31,6 +34,12 @@ from hipt_abmil_atec23_tpu_torch.kernels import build
 
 NEG_INF = -1e30
 _SHORT_N = 1024            # the JAX dispatcher's short-branch limit
+# The card kernels' tiling (kernels/csrc/flash_attention.cu), for tests that
+# sit at its edges: the flash kernel's keys per tile, and the most valid
+# keys (n_valid rounded up to 16) whose K and V the two-pass kernel holds in
+# two shared-memory stages, by head size.
+FLASH_KEY_TILE = 128
+RESIDENT_KEYS = {64: 400, 32: 848}
 _CHUNK_BYTES = 256 << 20   # f32 score bytes one plain step may hold
 
 
@@ -120,7 +129,7 @@ def _launch(q, k, v, valid_len, flash: bool, what: str) -> torch.Tensor:
         raise ValueError(f"{what} kernel takes bf16 q, k, v, got {q.dtype}, "
                          f"{k.dtype}, {v.dtype}")
     if (k.shape != q.shape or v.shape != q.shape or d not in (32, 64)
-            or not 0 < n_valid <= n or (n + 63) // 64 > 65535):
+            or not 0 < n_valid <= n):
         raise ValueError(
             f"{what} kernel does not take q {tuple(q.shape)}, k "
             f"{tuple(k.shape)}, v {tuple(v.shape)}, valid_len {n_valid} "

@@ -11,7 +11,7 @@ import chip_smoke
 from hipt_abmil_atec23_tpu_torch.ops import flash_attention as fa
 
 N = 16384       # long enough that unit logits give a near-uniform average
-TILE = 64       # the flash kernel's key tile
+TILE = fa.FLASH_KEY_TILE  # the flash kernel's key tile
 
 
 def _emulated_flash(q, k, v, fault=None):
@@ -53,6 +53,19 @@ def test_attention_check_rejects_planted_faults(fault, q_scale):
         with pytest.raises(SystemExit):
             chip_smoke._attn_check("flash_attention", fault, got, want)
 
+
+
+@pytest.mark.parametrize("n,nv,d", [(300, 211, 64), (97, 1, 32)])
+def test_sdpa_yardstick_computes_the_kernels_function(n, nv, d):
+    """chip_smoke's library call for both attention kernels, SDPA over the
+    first nv keys, is the function the kernels compute (keys >= nv at
+    -1e30): on the CPU in f32 it agrees with the plain oracle."""
+    g = torch.Generator().manual_seed(1)
+    q, k, v = (torch.randn(3, n, d, generator=g) for _ in range(3))
+    got = chip_smoke.sdpa_valid_keys(3 * q, k, v, nv)
+    want = fa.attention_reference(3 * q, k, v, nv)
+    assert got.shape == want.shape
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
 
 
 def test_stage_split_of_the_network_clock():

@@ -499,16 +499,27 @@ def _attn_within(got, want):
     return _within(got, want, 5e-2 * rms, 2e-2)
 
 
+# The two-pass kernel's edges: the most valid keys its two shared-memory
+# stages hold, and one 64-key chunk past them (streamed), at each head size
+RES64, RES32 = fa.RESIDENT_KEYS[64], fa.RESIDENT_KEYS[32]
+# the flash kernel's key tile
+KT = fa.FLASH_KEY_TILE
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("bh,n,valid,d", [(12, 257, 257, 64),
-                                          (12, 257, 257, 32),
-                                          (4, 264, 257, 64), (3, 100, 37, 32),
-                                          (2, 1500, 1400, 64), (5, 1, 1, 64)])
+@pytest.mark.parametrize("bh,n,valid,d", [
+    (12, 257, 257, 64), (12, 257, 257, 32), (4, 264, 257, 64),
+    (3, 100, 37, 32), (2, 1500, 1400, 64), (5, 1, 1, 64),
+    (3, RES64, RES64, 64), (3, RES64 + 64, RES64 + 64, 64),
+    (2, RES32, RES32 - 5, 32), (2, RES32 + 64, RES32 + 60, 32),
+    (6, 200, 1, 64), (6, 200, 192, 64)])
 def test_fused_attention_kernel_matches_plain(bh, n, valid, d, cuda_device):
     """Two-pass kernel against the plain version (the same rounding
     points): |kernel - plain| <= 5e-2 rms(plain) + 2e-2 |plain|; ragged
     N, masked keys, a medium N the dispatcher sends to the query-tiled
-    branch."""
+    branch, ViT-4K's 12 heads of 32 (a head's query tiles split over
+    CTAs), the most keys held resident and one chunk past them (streamed),
+    valid_len 1 and a multiple of 64."""
     q, k, v = _qkv(bh, n, d, cuda_device)
     before = fa.fused_attention.launches
     with torch.inference_mode():
@@ -521,12 +532,16 @@ def test_fused_attention_kernel_matches_plain(bh, n, valid, d, cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("bh,n,valid,d", [(2, 768, 700, 64),
-                                          (3, 300, 300, 32), (1, 70, 9, 64)])
+@pytest.mark.parametrize("bh,n,valid,d", [
+    (2, 768, 700, 64), (3, 300, 300, 32), (1, 70, 9, 64),
+    (1, KT - 1, KT - 1, 64), (1, KT, KT, 64), (1, KT + 1, KT + 1, 64),
+    (2, 1000, 777, 64), (3, 700, 650, 32)])
 def test_flash_attention_kernel_matches_plain(bh, n, valid, d, cuda_device):
     """Online-softmax kernel against its f32 plain version: p rounds to
     bf16 for the product, so |kernel - plain| <= 5e-2 rms(plain) +
-    2e-2 |plain|."""
+    2e-2 |plain|. N at the key tile and one either side, valid_len inside
+    a tile, head size 32, several heads of several query blocks (the K/V
+    ring wraps)."""
     q, k, v = _qkv(bh, n, d, cuda_device)
     before = fa.flash_attention.launches
     with torch.inference_mode():
