@@ -15,10 +15,13 @@ Phases (any failure exits non-zero, and no result line is printed):
      kernel also at an f32 residual, with its time by stage
      (torch.profiler over its seven launches) beside the network kernel's
      (%globaltimer stamps at its grid barriers); nvcc's -Xptxas -v report
-     and HGMMA count of the block, network and attention libraries. The pool runs at the HIPT
-     head (L 16) and at the reference CLAM 'small' head (L 512) on a
-     [100000, 1024] slide bag; its partial mode at both widths on full
-     slide bags.
+     and HGMMA count of the block, network, attention, MLP and pool
+     libraries. fused_mlp is timed at both per-op shapes beside the bf16
+     chain of torch calls of the same function and B.1's LN2 + FC1 + FC2
+     launches. The pool runs at the HIPT head (L 16) and at the reference
+     CLAM 'small' head (L 512) on a [100000, 1024] slide bag; its partial
+     mode at both widths on full slide bags; its bound is the least over
+     the f32 FMA rate and three tf32 passes.
      flash_attention is driven through attention() at a long N, where the
      dispatcher takes its flash branch; fused_network through
      fused_vit_network on the 12 ViT-256 blocks of a seeded full-width
@@ -80,6 +83,7 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from hipt_abmil_atec23_tpu_torch.device import require_cuda
 from hipt_abmil_atec23_tpu_torch.engine.encode import (
@@ -117,6 +121,10 @@ SOURCES = ("fused_block", "gated_pool", "dct_unpack", "fused_mlp",
 HBM_BYTES_S = 3.35e12
 BF16_FLOP_S = 989e12
 F32_FLOP_S = 67e12         # CUDA cores, no tensor cores
+TF32_FLOP_S = 494.7e12
+# f32-accurate products: the faster of the f32 FMA rate and three tf32
+# passes (hi.hi + hi.lo + lo.hi) on the tensor cores
+F32_ACCURATE_FLOP_S = max(F32_FLOP_S, TF32_FLOP_S / 3)
 
 
 def log(*a):
@@ -337,13 +345,16 @@ def _pool_bytes_flops(p, n):
 
 def _pool_row(name, p, bag, err, fn, plain, shape):
     ms, pms = gpu_timer(fn), gpu_timer(plain)
-    b_ms, b_by = bound(*_pool_bytes_flops(p, bag.shape[0]), F32_FLOP_S)
+    work = _pool_bytes_flops(p, bag.shape[0])
+    b_ms, b_by = bound(*work, F32_ACCURATE_FLOP_S)
+    fma_ms = bound(*work, F32_FLOP_S)[0]
     log(f"{name} {shape}: max_abs_err {err:.3g} (bound {POOL_TOL}); kernel "
-        f"{ms:.4f} ms, plain {pms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        f"{ms:.4f} ms, plain {pms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; at "
+        f"the f32 FMA rate {fma_ms:.4f})")
     if not err <= POOL_TOL:
         raise SystemExit(f"{name} disagrees at {shape}")
     return {"shape": shape, "ms": ms, "plain_ms": pms, "bound_ms": b_ms,
-            "bound_by": b_by, "max_abs_err": err}
+            "bound_by": b_by, "bound_fma_ms": fma_ms, "max_abs_err": err}
 
 
 def _kernel_pool(dev, g) -> dict:
@@ -378,7 +389,8 @@ def _kernel_pool(dev, g) -> dict:
                  "hipt_abmil_atec23_tpu/ops/gated_attention_pool.py:87",
                  max(r["max_abs_err"] for r in rows), first["ms"],
                  first["plain_ms"], first["shape"],
-                 *_pool_bytes_flops(p, 512), F32_FLOP_S, None)
+                 *_pool_bytes_flops(p, 512), F32_ACCURATE_FLOP_S, None)
+    rec["bound_fma_ms"] = first["bound_fma_ms"]
     rec["other_shapes"] = rows[1:]
     return rec
 
@@ -421,7 +433,9 @@ def _kernel_pool_partial(dev, g) -> dict:
                  "hipt_abmil_atec23_tpu_torch/kernels/csrc/gated_pool.cu",
                  "hipt_abmil_atec23_tpu/ops/gated_attention_pool.py:153",
                  max(r["max_abs_err"] for r in rows), first["ms"],
-                 first["plain_ms"], first["shape"], *timed, F32_FLOP_S, None)
+                 first["plain_ms"], first["shape"], *timed,
+                 F32_ACCURATE_FLOP_S, None)
+    rec["bound_fma_ms"] = first["bound_fma_ms"]
     rec["other_shapes"] = rows[1:]
     return rec
 
@@ -510,12 +524,36 @@ def _mlp_inputs(rows, d, h, g, dev):
     return x, gamma, beta, w1, b1, w2, b2
 
 
-def _kernel_mlp(dev, g) -> dict:
-    """fused_mlp in both modes against its plain version: ViT-256's
-    per-block call at the slice's batch (512 tiles x 257 tokens, timed),
-    ViT-4K's (2 x 257 rows, D 192), ragged and narrow shapes."""
-    worst, timed = 0.0, None
-    for rows, d, h in [(131584, 384, 1536), (514, 192, 768), (131, 64, 256)]:
+def _mlp_chain(x, gamma, beta, w1, b1, w2, b2, eps=1e-6):
+    """The same function as a chain of torch calls in x's dtype (bf16 on
+    the card): F.layer_norm -> F.linear -> F.gelu -> F.linear -> + x.
+    Context for fused_mlp's time, several calls and so not its library_ms;
+    never called by the port."""
+    dt = x.dtype
+    xn = F.layer_norm(x, (x.shape[-1],), gamma.to(dt), beta.to(dt), eps)
+    h = F.gelu(F.linear(xn, w1.t(), b1.to(dt)))
+    return F.linear(h, w2.t(), b2.to(dt)) + x
+
+
+def _mlp_bytes_flops(rows, d, h):
+    """x in and out; the weights and vectors once; two products."""
+    return (2 * rows * d * 2 + 2 * d * h * 2 + (h + 3 * d) * 4,
+            4.0 * rows * d * h)
+
+
+# fused_mlp's two per-op shapes: ViT-256's per-block call at the slice's
+# batch (512 tiles x 257 tokens; 48 launches per 8 regions) and ViT-4K's
+# (2 x 257 rows, D 192; 24)
+MLP_TIMED = ((131584, 384, 1536), (514, 192, 768))
+
+
+def _kernel_mlp(dev, g, block_split) -> dict:
+    """fused_mlp in both modes against its plain version at both per-op
+    shapes (timed, LN + residual, beside the bf16 chain of torch calls and
+    B.1's LN2 + FC1 + FC2 launches at [512,264,384] from ``block_split``)
+    and a ragged narrow shape."""
+    worst, timed = 0.0, []
+    for rows, d, h in [*MLP_TIMED, (131, 64, 256)]:
         args = _mlp_inputs(rows, d, h, g, dev)
         for with_ln in (True, False):
             with torch.inference_mode():
@@ -531,23 +569,36 @@ def _kernel_mlp(dev, g) -> dict:
                         f"{'LN+residual' if with_ln else 'plain MLP'}")
                 worst = max(worst, _check("fused_mlp", what, got, want,
                                           MLP_TOL))
-                if timed is None:
+                if with_ln and (rows, d, h) in MLP_TIMED:
                     ms = gpu_timer(fn)
                     pms = gpu_timer(lambda: fm.fused_mlp_reference(
                         *args, with_ln=True, residual=True), iters=3)
+                    chain = gpu_timer(lambda: _mlp_chain(*args))
+                    b_ms, _ = bound(*_mlp_bytes_flops(rows, d, h),
+                                    BF16_FLOP_S)
                     log(f"fused_mlp {what}: kernel {ms:.4f} ms, plain "
-                        f"{pms:.4f} ms")
-                    # x in, out; weights and vectors once
-                    nbytes = (2 * rows * d * 2 + 2 * d * h * 2
-                              + (h + 3 * d) * 4)
-                    timed = (ms, pms, f"[{rows},{d}] bf16, H {h}, LN + "
-                             "residual", nbytes, 4.0 * rows * d * h)
+                        f"{pms:.4f} ms, bf16 torch chain {chain:.4f} ms, "
+                        f"bound {b_ms:.4f} ms")
+                    timed.append({"shape": f"[{rows},{d}] bf16, H {h}, LN + "
+                                  "residual", "ms": ms, "plain_ms": pms,
+                                  "chain_ms": chain, "bound_ms": b_ms,
+                                  "work": _mlp_bytes_flops(rows, d, h)})
         del args
-    ms, pms, shape, nbytes, flops = timed
-    return record("fused_mlp",
-                  "hipt_abmil_atec23_tpu_torch/kernels/csrc/fused_mlp.cu",
-                  "hipt_abmil_atec23_tpu/ops/fused_mlp.py:44", worst, ms,
-                  pms, shape, nbytes, flops, BF16_FLOP_S, None)
+    b1 = {k: block_split[k] for k in ("LN2", "FC1", "FC2") if k in block_split}
+    b1_ms = sum(b1.values())
+    log(f"fused_mlp [131584,384] {timed[0]['ms']:.4f} ms against B.1's "
+        f"LN2 + FC1 + FC2 launches at [512,264,384] (135168 rows) "
+        f"{b1_ms:.4f} ms in this run ({b1})")
+    first = timed[0]
+    rec = record("fused_mlp",
+                 "hipt_abmil_atec23_tpu_torch/kernels/csrc/fused_mlp.cu",
+                 "hipt_abmil_atec23_tpu/ops/fused_mlp.py:44", worst,
+                 first["ms"], first["plain_ms"], first["shape"],
+                 *first["work"], BF16_FLOP_S, None)
+    rec.update(chain_ms=first["chain_ms"],
+               fused_block_ln2_fc1_fc2_ms=b1_ms,
+               also={k: v for k, v in timed[1].items() if k != "work"})
+    return rec
 
 
 def _qkv(bh, n, d, g, dev):
@@ -573,7 +624,6 @@ def sdpa_valid_keys(q, k, v, n_valid):
     give keys >= n_valid a score of -1e30, whose weight is exactly 0 in
     f32). q, k, v [BH, N, d] -> [BH, N, d]. The yardstick only; the port
     never calls it."""
-    import torch.nn.functional as F
     return F.scaled_dot_product_attention(
         q[None], k[None, :, :n_valid], v[None, :, :n_valid])[0]
 
@@ -582,7 +632,6 @@ def _sdpa_ms(q, k, v, n_valid) -> float:
     """library_ms of both attention kernels: sdpa_valid_keys, timed. The
     call with a boolean key mask over all N keys, which takes SDPA off its
     flash backend, is logged beside it."""
-    import torch.nn.functional as F
     mask = torch.arange(q.shape[1], device=q.device)[None, :] < n_valid
     with torch.inference_mode():
         ms = gpu_timer(lambda: sdpa_valid_keys(q, k, v, n_valid))
@@ -893,7 +942,8 @@ def _kernel_network(dev, regions, g):
 def _kernel_label(mangled: str) -> str:
     """gemm_kernel<3>, network_kernel<bf16,64>, ... from a mangled name."""
     m = re.search(r"(layernorm_kernel|gemm_kernel|fused_attention_kernel|"
-                  r"flash_attention_kernel|attention_kernel|network_kernel)"
+                  r"flash_attention_kernel|attention_kernel|network_kernel|"
+                  r"fused_mlp_kernel|pool_pass1_tc|pool_pass1)"
                   r"I(.*?)EE", mangled)
     if not m:
         return mangled
@@ -940,15 +990,17 @@ def phase_kernels(dev, dct_slide, regions) -> dict:
         build.load(name)
     log(f"kernels built in {time.perf_counter() - t0:.1f} s "
         f"({build.BUILD_DIR})")
-    for name in ("fused_block", "fused_network", "flash_attention"):
+    for name in ("fused_block", "fused_network", "flash_attention",
+                 "fused_mlp", "gated_pool"):
         build_report(build, name)
     g = torch.Generator().manual_seed(0)
     records = {"fused_block": _kernel_block(dev, g),
                "gated_pool": _kernel_pool(dev, g),
                "gated_pool_partial": _kernel_pool_partial(dev, g),
-               "dct_unpack": _kernel_unpack(dev, dct_slide),
-               "fused_mlp": _kernel_mlp(dev, g),
-               "fused_attention": _kernel_attention(dev, g)}
+               "dct_unpack": _kernel_unpack(dev, dct_slide)}
+    records["fused_mlp"] = _kernel_mlp(dev, g,
+                                       records["fused_block"]["stage_ms"])
+    records["fused_attention"] = _kernel_attention(dev, g)
     records["flash_attention"], launches = _kernel_flash(dev, g)
     paths = {"attention_long_n": {
         "launches": launches,

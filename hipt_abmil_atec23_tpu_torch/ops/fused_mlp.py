@@ -11,6 +11,11 @@ Dispatch is by the tensor's device: a CUDA tensor launches the kernel (bf16
 rows and weights, D <= 384 and a multiple of 32, H a multiple of 64), a CPU
 tensor runs ``fused_mlp_reference``. Nothing else falls back: a build or
 launch failure raises, and so does any input the kernel does not take.
+
+The kernel reads both weights K-major (W1^T [H, D], W2^T [D, H], torch
+Linear's layout), as wgmma reads its operands. ``_k_major`` makes that copy
+of a JAX-layout weight once and keeps it on the weight until the weight
+changes; ``mlp_weights`` makes both layouts together.
 """
 from __future__ import annotations
 
@@ -58,6 +63,27 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def _version(t: torch.Tensor):
+    """t's in-place version, or None for an inference tensor (which keeps
+    no version counter)."""
+    return None if t.is_inference() else t._version
+
+
+def _k_major(w: torch.Tensor) -> torch.Tensor:
+    """w.t() made contiguous: the K-major layout the kernel reads of a
+    JAX-layout weight. Kept on ``w`` (``_hk_k_major``) until ``w`` changes
+    in place; ``mlp_weights`` sets it on the weights it makes. An inference
+    tensor from elsewhere has no version to check, so it is transposed on
+    every call."""
+    hit = getattr(w, "_hk_k_major", None)
+    if hit is not None and hit[0] == _version(w):
+        return hit[1]
+    kt = w.t().contiguous()
+    if not w.is_inference():
+        w._hk_k_major = (w._version, kt)
+    return kt
+
+
 def _f32_vec(t: torch.Tensor, n: int, what: str) -> torch.Tensor:
     if t.shape != (n,):
         raise ValueError(f"fused_mlp kernel: {what} must be [{n}], got "
@@ -94,9 +120,9 @@ def _run(x, gamma, beta, w1, b1, w2, b2, *, with_ln, residual, eps):
     stream = torch.cuda.current_stream(x.device).cuda_stream
     ln = [gamma.data_ptr(), beta.data_ptr()] if with_ln else [None, None]
     err = lib.fused_mlp_forward(
-        xs.data_ptr(), *ln, w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-        b2.data_ptr(), out.data_ptr(), rows, d, h, int(with_ln),
-        int(residual), eps, stream)
+        xs.data_ptr(), *ln, _k_major(w1).data_ptr(), b1.data_ptr(),
+        _k_major(w2).data_ptr(), b2.data_ptr(), out.data_ptr(), rows, d, h,
+        int(with_ln), int(residual), eps, stream)
     build.check(lib, "fused_mlp_error_string", err, "fused_mlp")
     fused_mlp.launches += 1
     return out.reshape(x.shape)
@@ -126,9 +152,10 @@ fused_mlp.launches = 0  # kernel launches, in either mode (one per call)
 
 def mlp_weights(mlp, dtype: torch.dtype, dev: torch.device) -> list:
     """A models.vit.Mlp's parameters as the kernel takes them: w1 [D, H]
-    and w2 [H, D] in ``dtype`` (the JAX layout), f32 biases, on ``dev``.
-    Made once and kept on the module until a parameter changes (a
-    load_state_dict bumps its version) or moves."""
+    and w2 [H, D] in ``dtype`` (the JAX layout), f32 biases, on ``dev``,
+    each weight carrying its K-major copy for ``_k_major``. Made once and
+    kept on the module until a parameter changes (a load_state_dict bumps
+    its version) or moves."""
     prms = [mlp.fc1.weight, mlp.fc1.bias, mlp.fc2.weight, mlp.fc2.bias]
     stamp = (dtype, dev, tuple((t._version, t.data_ptr()) for t in prms))
     hit = getattr(mlp, "_kernel_weights", None)
@@ -136,5 +163,7 @@ def mlp_weights(mlp, dtype: torch.dtype, dev: torch.device) -> list:
         w1, b1, w2, b2 = (t.detach().to(dev) for t in prms)
         wts = [w1.t().to(dtype).contiguous(), b1.float(),
                w2.t().to(dtype).contiguous(), b2.float()]
+        for w, kt in ((wts[0], w1), (wts[2], w2)):
+            w._hk_k_major = (_version(w), kt.to(dtype).contiguous())
         hit = mlp._kernel_weights = (stamp, wts)
     return hit[1]

@@ -16,7 +16,10 @@ the shard-local online-softmax state (acc, m, l) that
 an all-masked bag gives the bias logits. All math is f32.
 
 A CUDA bag launches the kernel, a CPU bag runs
-``gated_attention_pool_reference``. Nothing else falls back.
+``gated_attention_pool_reference``. Nothing else falls back. Heads wider
+than the HIPT ones run both products on the tensor cores as three tf32
+products each; the kernel reads their weights in the layout
+``split_weights`` makes once per parameter set.
 """
 from __future__ import annotations
 
@@ -45,7 +48,17 @@ class GatedPoolParams(NamedTuple):
 
 
 def params_from_clam(model) -> GatedPoolParams:
-    """The pooling weights of a models.abmil.CLAM_SB."""
+    """The pooling weights of a models.abmil.CLAM_SB, made once and kept on
+    the model until a parameter changes (its version) or moves, so the
+    kernel's split weights (``split_weights``) are made once too."""
+    stamp = tuple((t._version, t.data_ptr()) for t in model.parameters())
+    hit = getattr(model, "_pool_params", None)
+    if hit is None or hit[0] != stamp:
+        hit = model._pool_params = (stamp, _params_from_clam(model))
+    return hit[1]
+
+
+def _params_from_clam(model) -> GatedPoolParams:
     fc, _, attn = model.attention_net
 
     def t(lin):
@@ -104,21 +117,69 @@ def combine_partials(acc: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
     return acc_g / torch.clamp(l_g, min=1e-30) @ p.w_cls + p.b_cls
 
 
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """f32 rounded to tf32 (10 mantissa bits, nearest, ties away from 0),
+    as cvt.rna.tf32.f32 rounds on the card."""
+    return ((x.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(
+        torch.float32)
+
+
+def k_permuted(w: torch.Tensor) -> torch.Tensor:
+    """w [rows, K] with K zero-padded to a multiple of 8 and permuted in
+    each 8: column 8b + t takes 8b + 2t and 8b + t + 4 takes 8b + 2t + 1
+    (t < 4). The tf32 A fragment holds columns t and t + 4 of each 8, the
+    accumulator the pairs 2t, 2t + 1: with B's K in this order a thread's
+    A values are its own float2 pairs."""
+    k8 = -(-w.shape[1] // 8) * 8
+    w = torch.nn.functional.pad(w, (0, k8 - w.shape[1]))
+    t = torch.arange(4, device=w.device)
+    perm = (8 * torch.arange(k8 // 8, device=w.device)[:, None]
+            + torch.cat([2 * t, 2 * t + 1])[None, :]).reshape(-1)
+    return w[:, perm].contiguous()
+
+
+def split_weights(p: GatedPoolParams) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The tensor-core pass's weights: wf2 [2, L, Dk], the tf32 hi and lo
+    of W_f^T, and wz2 [2, 2 D, Lk], of [W_a | W_b]^T with rows 2d = W_a[:,
+    d] and 2d + 1 = W_b[:, d] (z_a[d] and z_b[d] side by side in a
+    thread's accumulator); K permuted by ``k_permuted``. Kept on p.w_f
+    until a weight changes in place (inference tensors keep no version and
+    are taken as unchanged while they are the same objects)."""
+    key = tuple((id(t), None if t.is_inference() else t._version)
+                for t in (p.w_f, p.w_a, p.w_b))
+    hit = getattr(p.w_f, "_hk_split", None)
+    if hit is not None and hit[0] == key:
+        return hit[1]
+    wa, wb = p.w_a.float(), p.w_b.float()
+    wz = torch.stack([wa.t(), wb.t()], 1).reshape(-1, wa.shape[0])
+    out = []
+    for w in (p.w_f.float().t(), wz):
+        w = k_permuted(w)
+        hi = _tf32(w)
+        out.append(torch.stack([hi, _tf32(w - hi)]).contiguous())
+    p.w_f._hk_split = (key, tuple(out))
+    return tuple(out)
+
+
 def _lib() -> ctypes.CDLL:
     lib = build.load("gated_pool")
     if not getattr(lib, "_hk_bound", False):
         vp, i = ctypes.c_void_p, ctypes.c_int
         lib.gated_pool_forward.argtypes = (
-            [vp, vp, i, i, i, i, i, i] + [vp] * 10 + [vp] * 3 + [vp])
+            [vp, vp, i, i, i, i, i, i] + [vp] * 10 + [vp] * 2 + [vp] * 4
+            + [vp])
         lib.gated_pool_forward.restype = i
         lib.gated_pool_partial.argtypes = (
-            [vp, vp, i, i, i, i, i] + [vp] * 8 + [vp] * 4 + [vp])
+            [vp, vp, i, i, i, i, i] + [vp] * 8 + [vp] * 2 + [vp] * 5 + [vp])
         lib.gated_pool_partial.restype = i
-        for fn in ("gated_pool_tile", "gated_pool_max_parts"):
+        for fn in ("gated_pool_tile", "gated_pool_max_parts",
+                   "gated_pool_max_l"):
             getattr(lib, fn).argtypes = []
             getattr(lib, fn).restype = i
-        lib.gated_pool_smem_bytes.argtypes = [i, i]
-        lib.gated_pool_smem_bytes.restype = i
+        lib.gated_pool_variant.argtypes = [i, i]
+        lib.gated_pool_variant.restype = i
+        lib.gated_pool_scratch_float2.argtypes = [i, i, i]
+        lib.gated_pool_scratch_float2.restype = ctypes.c_longlong
         lib.gated_pool_error_string.argtypes = [i]
         lib.gated_pool_error_string.restype = ctypes.c_char_p
         lib._hk_bound = True
@@ -136,9 +197,11 @@ def _launch(bag, p, n_valid, mask, partial: bool):
     n, d_in = bag.shape
     l_dim, d_att = p.w_a.shape
     lib = _lib()
-    if lib.gated_pool_smem_bytes(l_dim, d_att) == 0:
+    variant = lib.gated_pool_variant(l_dim, d_att)
+    if variant < 0:
         raise ValueError(f"gated_attention_pool kernel: a head of L={l_dim} "
-                         "does not fit one block's shared memory")
+                         f"is past the {lib.gated_pool_max_l()} columns its "
+                         "running sums hold")
     dev = bag.device
     bag = bag.float().contiguous()
     w = [t.detach().to(dev, torch.float32).contiguous() for t in p]
@@ -150,22 +213,33 @@ def _launch(bag, p, n_valid, mask, partial: bool):
     f32 = dict(device=dev, dtype=torch.float32)
     scores = torch.empty(n, **f32)
     part = torch.empty((parts, 2 + l_dim), **f32)
+    split, scratch = [None, None], None
+    if variant == 1:
+        split = [t.to(dev) for t in split_weights(p)]
+        pairs = lib.gated_pool_scratch_float2(n, l_dim, d_att)
+        if pairs < 0:
+            raise RuntimeError("gated_attention_pool: the CUDA occupancy "
+                               "query failed")
+        scratch = torch.empty(2 * pairs, **f32)
+    ptrs = [None if t is None else t.data_ptr() for t in split]
     stream = torch.cuda.current_stream(dev).cuda_stream
     head = (bag.data_ptr(), None if mask_u8 is None else mask_u8.data_ptr(),
             0 if n_valid is None else int(n_valid), n, d_in, l_dim, d_att)
+    tail = (scores.data_ptr(), part.data_ptr(),
+            None if scratch is None else scratch.data_ptr())
     if partial:
         acc = torch.empty((1, l_dim), **f32)
         ml = torch.empty(2, **f32)
         err = lib.gated_pool_partial(
-            *head, *[t.data_ptr() for t in w[:8]], scores.data_ptr(),
-            part.data_ptr(), acc.data_ptr(), ml.data_ptr(), stream)
+            *head, *[t.data_ptr() for t in w[:8]], *ptrs, *tail,
+            acc.data_ptr(), ml.data_ptr(), stream)
         build.check(lib, "gated_pool_error_string", err,
                     "gated_attention_pool_partial")
         return acc, ml[0], ml[1], scores
     logits = torch.empty((1, w[8].shape[1]), **f32)
     err = lib.gated_pool_forward(
-        *head, w[8].shape[1], *[t.data_ptr() for t in w], scores.data_ptr(),
-        part.data_ptr(), logits.data_ptr(), stream)
+        *head, w[8].shape[1], *[t.data_ptr() for t in w], *ptrs, *tail,
+        logits.data_ptr(), stream)
     build.check(lib, "gated_pool_error_string", err, "gated_attention_pool")
     return logits, scores
 
@@ -180,8 +254,8 @@ def gated_attention_pool(bag: torch.Tensor, p: GatedPoolParams,
     data, no rebuild). ``tile``, ``impl`` ("grid" or "dma") and ``nbuf``
     keep the JAX signature: the TPU's two launchers (block pipeline, DMA
     ring) are one CUDA launch here, which sizes its own tiles, so they
-    select nothing. The kernel takes any D_in and D_att and L up to ~690
-    (its h tile lives in shared memory); a wider head raises."""
+    select nothing. The kernel takes any D_in and D_att and L up to 768
+    (its running sums live in shared memory); a wider head raises."""
     _check_impl(impl)
     n = bag.shape[0]
     if n == 0:

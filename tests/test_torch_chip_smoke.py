@@ -1,7 +1,9 @@
-"""chip_smoke.py's attention check, held on the CPU against outputs with
-planted faults: the tolerance it holds the attention kernels to must pass
-an output rounded as the flash kernel rounds and fail a kernel that drops a
-key tile or normalises twice."""
+"""chip_smoke.py's checks, held on the CPU against outputs with planted
+faults: the tolerance it holds the attention kernels to must pass an output
+rounded as the flash kernel rounds and fail a kernel that drops a key tile
+or normalises twice; its fused_mlp check must pass an output rounded as the
+MLP kernel rounds and fail one that drops a hidden chunk or leaves a row
+tile unwritten."""
 import functools
 
 import pytest
@@ -9,6 +11,7 @@ import torch
 
 import chip_smoke
 from hipt_abmil_atec23_tpu_torch.ops import flash_attention as fa
+from hipt_abmil_atec23_tpu_torch.ops import fused_mlp as fm
 
 N = 16384       # long enough that unit logits give a near-uniform average
 TILE = fa.FLASH_KEY_TILE  # the flash kernel's key tile
@@ -126,3 +129,49 @@ def test_kernel_ms_reads_device_time():
     assert chip_smoke.kernel_ms(rows, 5) == {
         "gemm_kernel<0>": pytest.approx(0.2),
         "gemm_kernel<1>": pytest.approx(0.1)}
+
+
+def _emulated_mlp(x, gamma, beta, w1, b1, w2, b2, fault=None):
+    """fused_mlp's rounding on the CPU (LN in f32, its output and the
+    post-GELU hidden rounded to bf16, f32 sums, residual on the loaded x)
+    with a planted fault: one 64-unit hidden chunk left out, or one 64-row
+    tile of the output never written (zeros)."""
+    xf = x.float()
+    xn = torch.nn.functional.layer_norm(xf, (x.shape[1],), gamma, beta,
+                                        1e-6).to(torch.bfloat16).float()
+    h = torch.nn.functional.gelu(xn @ w1.float() + b1)
+    if fault == "dropped_chunk":
+        h[:, 5 * 64:6 * 64] = 0
+    out = (h.to(torch.bfloat16).float() @ w2.float() + b2 + xf).to(x.dtype)
+    if fault == "unwritten_tile":
+        out[64:128] = 0
+    return out
+
+
+@pytest.mark.parametrize("fault", [None, "dropped_chunk", "unwritten_tile"])
+def test_mlp_check_rejects_planted_faults(fault):
+    """chip_smoke's fused_mlp check at the slice's widths (D 384, H 1536) on
+    its own input draw: the kernel-like output passes and each planted
+    fault fails."""
+    args = chip_smoke._mlp_inputs(200, 384, 1536,
+                                  torch.Generator().manual_seed(0),
+                                  torch.device("cpu"))
+    want = fm.fused_mlp_reference(*args, with_ln=True, residual=True)
+    got = _emulated_mlp(*args, fault=fault)
+    if fault is None:
+        chip_smoke._check("fused_mlp", "kernel-like", got, want,
+                          chip_smoke.MLP_TOL)
+    else:
+        with pytest.raises(SystemExit):
+            chip_smoke._check("fused_mlp", fault, got, want,
+                              chip_smoke.MLP_TOL)
+
+
+def test_mlp_chain_computes_the_kernels_function():
+    """The bf16 torch chain chip_smoke times beside fused_mlp computes its
+    function: in f32 it equals the plain version."""
+    args = [t.float() for t in chip_smoke._mlp_inputs(
+        50, 64, 256, torch.Generator().manual_seed(1), torch.device("cpu"))]
+    want = fm.fused_mlp_reference(*args, with_ln=True, residual=True)
+    got = chip_smoke._mlp_chain(*args)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)

@@ -148,3 +148,33 @@ def test_mlp_weights_follow_the_parameters():
         assert torch.equal(again[2], m.fc2.weight.detach().t().bfloat16())
         assert fm.mlp_weights(m, torch.float32, dev)[0].dtype == \
             torch.float32
+
+
+def test_k_major_weights_reproduce_the_pallas_kernel():
+    """The kernel reads W1^T and W2^T (K-major): ``_k_major`` copies of the
+    JAX-layout weights through the kernel's products on the CPU give the
+    interpret-mode kernel's LN + MLP + residual (f32, 2e-5); the copy is
+    made once per weight version, and mlp_weights attaches it."""
+    d, h = 96, 384
+    (jx, jg, jbe, jw1, jb1, jw2, jb2), (x, g, be, w1, b1, w2, b2) = \
+        _cast(_arrays((7, 13), d, h, seed=3), "float32")
+    want = _interpret(jfm.fused_ln_mlp_residual, jx, jg, jbe, jw1, jb1, jw2,
+                      jb2, eps=1e-6)
+    w1t, w2t = fm._k_major(w1), fm._k_major(w2)
+    assert w1t.shape == (h, d) and w2t.shape == (d, h)
+    assert fm._k_major(w1) is w1t
+    xn = torch.nn.functional.layer_norm(x, (d,), g, be, eps=1e-6)
+    got = torch.nn.functional.gelu(xn @ w1t.T + b1) @ w2t.T + b2 + x
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5,
+                               atol=2e-5)
+    with torch.no_grad():
+        w1.add_(1.0)
+    assert fm._k_major(w1) is not w1t
+    assert torch.equal(fm._k_major(w1), w1.t())
+    m = Mlp(64, 256)
+    with torch.inference_mode():
+        ww = fm.mlp_weights(m, torch.bfloat16, torch.device("cpu"))
+        assert torch.equal(fm._k_major(ww[0]),
+                           m.fc1.weight.detach().bfloat16())
+        assert torch.equal(fm._k_major(ww[2]),
+                           m.fc2.weight.detach().bfloat16())

@@ -147,3 +147,91 @@ def test_apply_pooled_routes_like_jax(n_pad, n_valid, jax_pooled, rng,
                                    np.asarray(want.a_raw)[:, :n_valid],
                                    rtol=1e-4, atol=1e-5)
         assert int(got.y_hat[0]) == int(np.asarray(want.y_hat)[0])
+
+
+def test_k_permuted_pairs_each_eight_columns():
+    """k_permuted pads K to a multiple of 8 with zeros and puts columns 2t
+    and 2t + 1 of every 8 at t and t + 4: a tf32 A fragment's (t, t + 4)."""
+    w = torch.arange(3 * 13, dtype=torch.float32).reshape(3, 13)
+    got = gap.k_permuted(w)
+    assert got.shape == (3, 16)
+    padded = torch.nn.functional.pad(w, (0, 3))
+    for b in range(2):
+        for t in range(4):
+            assert torch.equal(got[:, 8 * b + t], padded[:, 8 * b + 2 * t])
+            assert torch.equal(got[:, 8 * b + t + 4],
+                               padded[:, 8 * b + 2 * t + 1])
+
+
+def test_tf32_split_keeps_22_bits(rng):
+    """hi = tf32(x) clears the low 13 mantissa bits (nearest, ties away);
+    hi + tf32(x - hi) is x to ~2^-22 of |x|."""
+    x = torch.from_numpy(rng.normal(size=4096).astype(np.float32) * 3)
+    hi = gap._tf32(x)
+    lo = gap._tf32(x - hi)
+    assert not (hi.view(torch.int32) & 0x1FFF).any()
+    assert ((x - hi).abs() <= hi.abs() * 2.0 ** -11).all()
+    assert ((x - hi - lo).abs() <= x.abs() * 2.0 ** -21).all()
+    assert gap._tf32(torch.tensor([1 + 2.0 ** -11]))[0] == 1 + 2.0 ** -10
+
+
+def _tensor_core_pool(bag, mask, p):
+    """The tensor-core pass 1 emulated on the CPU from ``split_weights``:
+    A permuted and split like the kernel's registers, three tf32 products
+    per GEMM, z_a and z_b de-interleaved; then the plain softmax pooling."""
+    wf2, wz2 = gap.split_weights(p)
+
+    def product(a, w2):
+        a = gap.k_permuted(a)
+        hi = gap._tf32(a)
+        lo = gap._tf32(a - hi)
+        return hi @ w2[0].T + hi @ w2[1].T + lo @ w2[0].T
+
+    h = torch.relu(product(bag, wf2) + p.b_f)
+    z = product(h, wz2)
+    s = ((torch.tanh(z[:, 0::2] + p.b_a) * torch.sigmoid(z[:, 1::2] + p.b_b))
+         @ p.w_c + p.b_c)[:, 0]
+    s = torch.where(mask, s, torch.full_like(s, gap.NEG_INF))
+    e = torch.exp(s - s.max())
+    return (e @ h) / e.sum() @ p.w_cls + p.b_cls, s
+
+
+@pytest.mark.parametrize("d_in,l,d", [(1024, 512, 256), (130, 72, 20)])
+def test_split_weights_reproduce_the_pallas_kernel(d_in, l, d, rng):
+    """The kernel-layout weights the tensor-core pass reads (W_f^T and the
+    interleaved [W_a | W_b]^T, K permuted, tf32 hi / lo), through the
+    kernel's arithmetic on the CPU, give the interpret-mode Pallas kernel's
+    logits and scores within the card's 1e-4: the CLAM 'small' head and a
+    ragged one (D_in and L past a multiple of 8 and 32)."""
+    jp, tp = _params(rng, d_in=d_in, l=l, d=d)
+    n, valid = 200, 181
+    bag = rng.normal(size=(n, d_in)).astype(np.float32)
+    k_logits, k_scores = _interpret(jgap.gated_attention_pool,
+                                    jnp.asarray(bag), jp, n_valid=valid,
+                                    tile=128)
+    wf2, wz2 = gap.split_weights(tp)
+    assert wf2.shape == (2, l, -(-d_in // 8) * 8)
+    assert wz2.shape == (2, 2 * d, -(-l // 8) * 8)
+    assert gap.split_weights(tp)[0] is wf2  # made once
+    logits, scores = _tensor_core_pool(torch.from_numpy(bag),
+                                       torch.arange(n) < valid, tp)
+    np.testing.assert_allclose(logits.numpy(), np.asarray(k_logits)[0],
+                               rtol=0, atol=1e-4)
+    np.testing.assert_allclose(scores.numpy()[:valid],
+                               np.asarray(k_scores)[:valid], rtol=0,
+                               atol=1e-4)
+
+
+def test_params_from_clam_kept_until_a_parameter_changes(rng):
+    """apply_pooled asks for the pool weights on every call; they (and
+    the split weights made from them) are made once per parameter
+    version."""
+    _, _, port = _clam_pair(rng)
+    first = gap.params_from_clam(port)
+    assert gap.params_from_clam(port) is first
+    with torch.no_grad():
+        port.attention_net[0].weight.add_(1.0)
+    again = gap.params_from_clam(port)
+    assert again is not first
+    assert torch.equal(again.w_f,
+                       port.attention_net[0].weight.detach().t())

@@ -330,8 +330,61 @@ def test_combine_partials_on_card_matches_full_bag_kernel(cuda_device):
 
 
 @pytest.mark.cuda
-def test_pool_kernel_refuses_a_head_past_shared_memory(cuda_device):
-    """No quiet fallback: an h tile of L = 1024 does not fit a block."""
+@pytest.mark.parametrize("masking", ["tail", "all"])
+@pytest.mark.parametrize("l_dim", [768, 512, 33, 32])
+def test_pool_kernel_at_its_widest_heads(l_dim, masking, cuda_device):
+    """The 'big' head's D_in 1024 and D_att 384 at the most columns the
+    tensor-core pass holds (L 768), at 'big' itself (512), and across the
+    narrow / tensor-core boundary (L 32 with D_att 32 takes the narrow
+    pass, L 33 the tensor cores): both modes within 1e-4 of the plain
+    version, a masked tail and an all-masked bag (bias logits; m = -1e30,
+    l = 0)."""
+    d_att = 384 if l_dim > 33 else 32
+    g = torch.Generator().manual_seed(l_dim)
+    lin = [torch.nn.Linear(1024, l_dim), torch.nn.Linear(l_dim, d_att),
+           torch.nn.Linear(l_dim, d_att), torch.nn.Linear(d_att, 1),
+           torch.nn.Linear(l_dim, 2)]
+    for m in lin:
+        torch.nn.init.xavier_normal_(m.weight, generator=g)
+        with torch.no_grad():
+            m.bias.copy_(torch.randn(m.bias.shape, generator=g) * 0.1)
+    t = [x for m in lin for x in (m.weight.detach().t().contiguous(),
+                                  m.bias.detach())]
+    p = gap.GatedPoolParams(*(x.to(cuda_device) for x in t))
+    n = 20_000
+    bag = torch.randn(n, 1024, generator=g).to(cuda_device)
+    mask = (torch.arange(n, device=cuda_device) < n - 333
+            if masking == "tail"
+            else torch.zeros(n, dtype=torch.bool, device=cuda_device))
+    logits, scores = gap.gated_attention_pool(bag, p, mask=mask)
+    ref_logits, ref_scores = gap.gated_attention_pool_reference(bag, mask, p)
+    got = gap.gated_attention_pool_partial(bag, p, mask=mask)
+    want = gap.gated_attention_pool_partial_reference(bag, mask, p)
+    torch.cuda.synchronize()
+    assert (logits[0] - ref_logits).abs().max().item() <= 1e-4
+    assert (scores - ref_scores).abs().max().item() <= 1e-4
+    if masking == "all":
+        assert torch.allclose(logits[0], p.b_cls, atol=1e-7)
+        assert got[1].item() == torch.tensor(gap.NEG_INF).item()
+        assert got[2].item() == 0 and not got[0].any()
+    else:
+        assert _partial_err(got, want) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("l_dim", [1024, 769])
+def test_pool_kernel_refuses_a_head_past_shared_memory(l_dim, cuda_device):
+    """No quiet fallback: a head of L = 1024, and one column past the 768
+    the kernel's running sums hold in shared memory, raise."""
+    shapes = [(64, l_dim), (l_dim,), (l_dim, 32), (32,), (l_dim, 32), (32,),
+              (32, 1), (1,), (l_dim, 2), (2,)]
+    p = gap.GatedPoolParams(*(torch.zeros(s, device=cuda_device)
+                              for s in shapes))
+    bag = torch.zeros(100, 64, device=cuda_device)
+    with pytest.raises(ValueError):
+        gap.gated_attention_pool(bag, p)
+    with pytest.raises(ValueError):
+        gap.gated_attention_pool_partial(bag, p)
     shapes = [(64, 1024), (1024,), (1024, 32), (32,), (1024, 32), (32,),
               (32, 1), (1,), (1024, 2), (2,)]
     p = gap.GatedPoolParams(*(torch.zeros(s, device=cuda_device)
@@ -446,10 +499,23 @@ def _mlp_inputs(rows, d, h, dev, seed=0):
     return x, gamma, beta, w1, b1, w2, b2
 
 
+# Row counts around the kernel's 64-row tile (1, tile - 1, tile + 1, and the
+# per-op slice's 512 x 257 tokens), every D class the model uses (32, 64,
+# 192, 384) from H 64 up to 1536, and widths whose D / 2 output columns per
+# warpgroup take several wgmma widths (96: 32 + 16, 160: 64 + 16, 224:
+# 64 + 32 + 16, 256: 128, 288: 128 + 16, 352: 128 + 32 + 16)
+MLP_TILE = 64
+MLP_SHAPES = [(131, 384, 1536), (64, 192, 768), (5, 64, 256),
+              (1000, 32, 128), (1, 384, 1536), (MLP_TILE - 1, 384, 1536),
+              (MLP_TILE + 1, 384, 1536), (131584, 384, 1536),
+              (200, 32, 64), (200, 64, 1536), (200, 192, 64), (200, 384, 64),
+              (77, 96, 320), (77, 160, 640), (129, 224, 896),
+              (70, 256, 1024), (130, 288, 1152), (129, 352, 1408)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("with_ln", [True, False])
-@pytest.mark.parametrize("rows,d,h", [(131, 384, 1536), (64, 192, 768),
-                                      (5, 64, 256), (1000, 32, 128)])
+@pytest.mark.parametrize("rows,d,h", MLP_SHAPES)
 def test_fused_mlp_kernel_matches_plain(rows, d, h, with_ln, cuda_device):
     """bf16 kernel against the plain version (f32 products) on the card:
     |kernel - plain| <= 3e-2 + 5e-2 |plain| (the kernel's products round
