@@ -5,8 +5,9 @@ serving path on an NVIDIA H100 through its hand-written CUDA kernels.
 
 Phases (any failure exits non-zero, and no result line is printed):
   1. device: require CUDA; print the card's name and power limit.
-  2. kernels: build the six CUDA sources from the checkout (one nvcc per
-     source, side by side, sm_90a) and hold each of the eight kernels
+  2. kernels: build the seven CUDA sources from the checkout (one nvcc per
+     source, side by side, sm_90a) and hold each of the nine kernels (the
+     eight TPU kernels' ports and the colour kernel)
      against its plain PyTorch version on the card, at the main path's
      shapes, with the stated tolerance; time both, the bound of the same
      work, and the one PyTorch call that computes it where there is one
@@ -15,11 +16,14 @@ Phases (any failure exits non-zero, and no result line is printed):
      kernel also at an f32 residual, with its time by stage
      (torch.profiler over its seven launches) beside the network kernel's
      (%globaltimer stamps at its grid barriers); nvcc's -Xptxas -v report
-     and HGMMA count of the block, network, attention, MLP and pool
-     libraries. fused_mlp is timed at both per-op shapes beside the bf16
-     chain of torch calls of the same function and B.1's LN2 + FC1 + FC2
-     launches. The pool runs at the HIPT head (L 16) and at the reference
-     CLAM 'small' head (L 512) on a [100000, 1024] slide bag; its partial
+     and HGMMA count of every library. The DCT decode on an aligned and an
+     offset pack of two 4096^2 regions (coefficient tap bit-equal, planes
+     within 1 LSB); the colour kernel at that batch in bf16 and f32 and at
+     4:2:2 and 4:2:0 edges. fused_mlp is timed at both per-op shapes
+     beside the bf16 chain of torch calls of the same function and B.1's
+     LN2 + FC1 + FC2 launches. The pool runs at the HIPT head (L 16) and
+     at the reference CLAM 'small' head (L 512) on a [100000, 1024] slide
+     bag; its partial
      mode at both widths on full slide bags; its bound is the least over
      the f32 FMA rate and three tf32 passes.
      flash_attention is driven through attention() at a long N, where the
@@ -31,21 +35,23 @@ Phases (any failure exits non-zero, and no result line is printed):
      as YCbCr 4:2:0 planes) through build_encoder (full-width HIPT_4K,
      bf16, seeded random weights, every block the fused block kernel,
      batch 2) -> encode_stream -> CLAM_SB hipt_smaller through serve's
-     _mil_bucketed. Launch counts are zeroed right before this run and must
-     be non-zero after it. The features are held against a second pass of
-     the same weights on the plain versions.
+     _mil_bucketed. Launch counts are zeroed right before this run;
+     fused_block, gated_pool and ycc_input must be non-zero after it and
+     dct_decode zero. The features are held against a second pass of the
+     same weights on the plain versions.
   4. DCT slice: two in-memory 8192^2 slides stored as JPEG quality-80
      coefficients (slideio/synthetic.DctMemorySlide) through the same
      encoder -> encode_stream(adaptive_rungs=False) on the sparse-DCT rung
-     -> CLAM_SB. Counts zeroed before, dct_unpack, fused_block and
-     gated_pool each non-zero after; features held against the plain pass;
+     -> CLAM_SB. Counts zeroed before, dct_decode, ycc_input, fused_block
+     and gated_pool each non-zero after; features held against the plain
+     pass;
      one batch's decoded planes held against the slide's own decode; the
      per-rung seed costs measured; one adaptive stream printed.
   5. per-op slice: the plane slides of phase 3 through the per-op
      configuration (make_hipt_encoder(use_flash=True, use_fused_mlp=True),
      the same weights) via build_encoder(model=...) -> encode_stream ->
-     CLAM_SB. Counts zeroed before; fused_attention, fused_mlp and
-     gated_pool non-zero and fused_block zero after. Features held against
+     CLAM_SB. Counts zeroed before; fused_attention, fused_mlp, gated_pool
+     and ycc_input non-zero and fused_block zero after. Features held against
      the plain pass of the same configuration and against phase 3's
      fused-block features; ms per region of both configurations printed.
   6. sharded: the instance-sharded full-bag path (parallel/) over a
@@ -60,7 +66,9 @@ Phases (any failure exits non-zero, and no result line is printed):
      on disk (skipped, with a line saying what is missing, where cv2, h5py
      or the native reader's build dependencies are absent).
   8. profile (only with --profile PATH): where one warm encode_stream's
-     time goes, stage by stage, and torch.profiler kernel tables of the
+     time goes, stage by stage (the colour and DCT decode stages through
+     the kernels beside their plain chains), and torch.profiler kernel
+     tables of the
      fused-block and the per-op configurations, written to PATH and
      PATH.per_op.
 
@@ -96,7 +104,7 @@ from hipt_abmil_atec23_tpu_torch.models.vit import Block
 from hipt_abmil_atec23_tpu_torch.ops import flash_attention as fa
 from hipt_abmil_atec23_tpu_torch.ops import fused_mlp as fm
 from hipt_abmil_atec23_tpu_torch.ops import gated_attention_pool as gap
-from hipt_abmil_atec23_tpu_torch.ops import jpegdct
+from hipt_abmil_atec23_tpu_torch.ops import jpegdct, yuv
 from hipt_abmil_atec23_tpu_torch.ops.fused_block import (
     fused_vit_block, fused_vit_block_reference)
 from hipt_abmil_atec23_tpu_torch.ops.fused_network import (
@@ -114,8 +122,13 @@ Q_SCALE = 3.0              # q scale: logits of std 3, a peaked softmax
 POOL_TOL = 1e-4            # f32 logits and scores
 REGION = 4096
 SLIDE = 8192
-SOURCES = ("fused_block", "gated_pool", "dct_unpack", "fused_mlp",
-           "flash_attention", "fused_network")
+SOURCES = ("fused_block", "gated_pool", "dct_decode", "ycc_input",
+           "fused_mlp", "flash_attention", "fused_network")
+PLANE_SHARE = 1e-3         # decoded samples allowed 1 LSB off the plain
+# f32 operations per output pixel of the colour kernel: its share of the
+# vertical chroma filter (3 per plane per chroma sample, 2 pixels each),
+# the horizontal one (3 per plane), colour (8), clamp (6), normalize (6)
+COLOUR_FLOPS_PER_PX = 29
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit) for bounds
 HBM_BYTES_S = 3.35e12
@@ -453,49 +466,192 @@ def _device_pack(slide, coords, dev, caps=None, region=REGION):
     return pack, [torch.from_numpy(a).to(dev) for a in pack]
 
 
-def _kernel_unpack(dev, slide) -> dict:
-    """dct_unpack against its plain version at the main path's batch: two
-    4096^2 regions, Y NG = 32768 groups, Cb and Cr NG = 8192 each. The
-    output is integers times the table: equality is required."""
-    coords = np.array([[0, 0], [REGION, REGION]])
-    host, pack = _device_pack(slide, coords, dev)
-    q = pack[27].to(torch.float32)
-    comps = []
+def decode_check(what, planes, taps, want_planes, want_taps) -> int:
+    """The decode kernel against its plain version: every component's
+    coefficient tap bit-equal to ``_unpack_component``, every plane within
+    1 LSB of the plain plane on at most PLANE_SHARE of its samples (the
+    IDCT sums in another order); returns the largest |d|."""
+    worst = 0
+    for name, p, t, wp, wt in zip(("Y", "Cb", "Cr"), planes, taps,
+                                  want_planes, want_taps):
+        if t.shape != wt.shape or not torch.equal(t, wt):
+            n_bad = int((t != wt).sum()) if t.shape == wt.shape else -1
+            raise SystemExit(f"dct_decode {what}: the {name} coefficient "
+                             f"tap differs from the plain unpack "
+                             f"({n_bad} coefficients)")
+        if p.shape != wp.shape or p.dtype != torch.uint8:
+            raise SystemExit(f"dct_decode {what}: {name} plane "
+                             f"{tuple(p.shape)} {p.dtype}, plain "
+                             f"{tuple(wp.shape)}")
+        d = (p.int() - wp.int()).abs()
+        share = (d > 0).float().mean().item()
+        log(f"dct_decode {what} {name}: tap bit-equal, plane max |d| "
+            f"{int(d.max())}, share of samples differing {share:.3g} "
+            f"(<= 1 LSB on <= {PLANE_SHARE:g})")
+        if d.max() > 1 or share > PLANE_SHARE:
+            raise SystemExit(f"dct_decode {what}: {name} plane off the "
+                             "plain version")
+        worst = max(worst, int(d.max()))
+    return worst
+
+
+def colour_check(what, got, want) -> float:
+    """The colour kernel against its plain version: equal up to one bf16
+    ulp of the plain value's binade (bit-equal is what it is built for;
+    the share is logged); returns the max abs error."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise SystemExit(f"ycc_input {what}: {tuple(got.shape)} {got.dtype}"
+                         f", plain {tuple(want.shape)} {want.dtype}")
+    g, w = got.float(), want.float()
+    ulp = torch.ldexp(torch.ones_like(w), torch.frexp(w).exponent - 8)
+    err = (g - w).abs()
+    ok = bool((err <= ulp).all() and torch.isfinite(g).all())
+    equal = (g == w).float().mean().item()
+    log(f"ycc_input {what}: max_abs_err {err.max().item():.6g}, share "
+        f"bit-equal {equal:.6f}, within 1 bf16 ulp {ok}")
+    if not ok:
+        raise SystemExit(f"ycc_input disagrees with its plain version at "
+                         f"{what}")
+    return err.max().item()
+
+
+def _decode_pair(pack):
+    """The kernel's planes and coefficient taps, then the plain
+    version's."""
+    with torch.inference_mode():
+        *planes, taps = jpegdct.dct_regions_to_planes(*pack, tap=True)
+        want = jpegdct.dct_regions_to_planes_reference(*pack)
+        want_taps = [jpegdct._unpack_component(*pack[9 * c:9 * c + 9],
+                                               pack[27][c])
+                     for c in range(3)]
+    torch.cuda.synchronize()
+    return planes, taps, want, want_taps
+
+
+def idct_flops(host) -> int:
+    """f32 operations of the decode kernel's IDCT on a host DctBatch: per
+    block, pass 1 transforms its nu = max(count, 1) rows that ship (32 FMA
+    + 8 adds each) and pass 2 its 4 row pairs (8 nu FMA + 16 adds each):
+    136 nu + 64, where count is the block's shipped bitmap byte count (the
+    few rows its explicit escapes add are left out)."""
+    total = 0
     for c in range(3):
-        dc8, bmc, bmb, valn, esc8 = pack[9 * c:9 * c + 5]
-        comps.append((bmc, bmb, valn, esc8, q[c].contiguous(),
-                      dc8.shape[1] * dc8.shape[2]))
+        dc8, bmc = host[9 * c], host[9 * c + 1]
+        bl = dc8.shape[1] * dc8.shape[2]
+        cnt = np.stack([bmc & 0xF, bmc >> 4], -1).reshape(len(bmc), -1)
+        nu = np.maximum(cnt[:, :bl].astype(np.int64), 1)
+        total += int((136 * nu + 64).sum())
+    return total
+
+
+def device_ms(fn, names, calls: int = 20) -> float:
+    """Device ms per call of fn's kernels whose names hold one of
+    ``names``, summed (torch.profiler)."""
+    return sum(ms for k, ms in _launch_split(fn, calls).items()
+               if any(n in k for n in names))
+
+
+def _kernel_decode(dev, slide) -> dict:
+    """The decode against its plain version at the main path's batch of
+    two 4096^2 regions, an aligned pack and one off the MCU lattice (luma
+    4112^2 blocks cropped by 16); timed on both: device time of its two
+    kernels (DC pre-pass and decode; torch.profiler) and the call's time
+    (CUDA events)."""
+    worst, times = 0, {}
+    for what, coords in (("aligned", [[0, 0], [REGION, REGION]]),
+                         ("offset", [[8, 24], [REGION - 96, 2]])):
+        host, pack = _device_pack(slide, np.array(coords), dev)
+        planes, taps, want, want_taps = _decode_pair(pack)
+        if planes[0].shape != (2, REGION, REGION):
+            raise SystemExit(f"dct_decode {what}: Y {planes[0].shape}")
+        worst = max(worst, decode_check(what, planes, taps, want,
+                                        want_taps))
+        with torch.inference_mode():
+            call = lambda: jpegdct.dct_regions_to_planes(*pack)
+            ms = device_ms(call, ("dc_kernel", "decode_kernel"))
+            call_ms = gpu_timer(call)
+            pms = gpu_timer(lambda: jpegdct.dct_regions_to_planes_reference(
+                *pack), iters=3)
+        nbytes = (sum(t.numel() * t.element_size() for t in pack)
+                  + sum(p.numel() for p in planes))
+        flops = idct_flops(host)
+        times[what] = (ms, call_ms, pms, nbytes, flops)
+        log(f"dct_decode {what}, one batch (DC pre-pass + decode): kernels "
+            f"{ms:.4f} ms on the device, call {call_ms:.4f} ms, plain "
+            f"{pms:.4f} ms; pack {sum(a.nbytes for a in host[:27]) / 1e6:.2f}"
+            f" MB, {nbytes / 1e6:.1f} MB moved, IDCT {flops / 1e9:.3f} "
+            "GFLOP")
+    ms, call_ms, pms, nbytes, flops = times["aligned"]
+    rec = record("dct_decode",
+                 "hipt_abmil_atec23_tpu_torch/kernels/csrc/dct_decode.cu",
+                 "hipt_abmil_atec23_tpu/ops/jpegdct.py:166", worst, ms, pms,
+                 "v3 pack -> Y [2,4096,4096] + Cb, Cr [2,2048,2048] uint8 "
+                 "(one batch of two 4096^2 regions; DC pre-pass + decode)",
+                 nbytes, flops, F32_FLOP_S, None)
+    rec["call_ms"] = call_ms
+    oms, ocall, opms, obytes, oflops = times["offset"]
+    rec["offset"] = {"ms": oms, "call_ms": ocall, "plain_ms": opms,
+                     "bound_ms": bound(obytes, oflops, F32_FLOP_S)[0]}
+    return rec
+
+
+def _region_planes(planes, n=2):
+    """Y, Cb, Cr of the main path's first ``n`` 4096^2 regions of a
+    plane slide, on the CPU."""
+    _, y, cb, cr = planes
+    h = REGION // 2
+    cuts = [(0, 0), (REGION, REGION)][:n]
+    return (torch.from_numpy(np.stack([y[a:a + REGION, b:b + REGION]
+                                       for a, b in cuts])),
+            *(torch.from_numpy(np.stack([c[a // 2:a // 2 + h,
+                                           b // 2:b // 2 + h]
+                                         for a, b in cuts]))
+              for c in (cb, cr)))
+
+
+def _kernel_colour(dev, planes) -> dict:
+    """The colour kernel against its plain version at the main path's
+    batch (two 4096^2 regions, 4:2:0, bf16 out), in f32 out, and at 4:2:2
+    and 4:2:0 edges where W is not a multiple of its 16-pixel chunk."""
+    y, cb, cr = (t.to(dev) for t in _region_planes(planes))
     worst = 0.0
-    for name, args in zip(("Y", "Cb", "Cr"), comps):
-        got = jpegdct.dct_unpack(*args)
-        want = jpegdct.dct_unpack_reference(*args)
+    with torch.inference_mode():
+        for dt in (torch.bfloat16, torch.float32):
+            got = yuv.ycc_to_input(y, cb, cr, dt)
+            want = yuv.ycc_to_input_reference(y, cb, cr, dt)
+            worst = max(worst, colour_check(f"4:2:0 [2,4096,4096] {dt}",
+                                            got, want))
+            del got, want
+        g = torch.Generator().manual_seed(5)
+        for layout, shape_y, shape_c in (("4:2:2", (3, 999, 1528),
+                                          (3, 999, 764)),
+                                         ("4:2:0", (3, 998, 1528),
+                                          (3, 499, 764))):
+            py, pb, pr = (torch.randint(0, 256, s, generator=g,
+                                        dtype=torch.uint8).to(dev)
+                          for s in (shape_y, shape_c, shape_c))
+            for dt in (torch.bfloat16, torch.float32):
+                colour_check(f"{layout} {list(shape_y)} {dt}",
+                             yuv.ycc_to_input(py, pb, pr, dt),
+                             yuv.ycc_to_input_reference(py, pb, pr, dt))
         torch.cuda.synchronize()
-        ng = got.shape[0] * got.shape[1]
-        err = (got - want).abs().max().item()
-        log(f"dct_unpack {name}: NG {ng}, bit-equal "
-            f"{torch.equal(got, want)}, max_abs_err {err}")
-        if not torch.equal(got, want):
-            raise SystemExit(f"dct_unpack disagrees with its plain version "
-                             f"on {name}")
-        worst = max(worst, err)
-    ngs = [a[0].shape[0] * -(-a[5] // jpegdct._G) for a in comps]
-    if ngs != [32768, 8192, 8192]:
-        raise SystemExit(f"dct_unpack timed at NG {ngs}, not the main path's")
-    ms = gpu_timer(lambda: [jpegdct.dct_unpack(*a) for a in comps])
-    pms = gpu_timer(lambda: [jpegdct.dct_unpack_reference(*a)
-                             for a in comps], iters=3)
-    nbytes = sum(t.numel() * t.element_size() for a in comps
-                 for t in a[:5]) + sum(n * 1024 * 4 for n in ngs)
-    pack_mb = sum(a.nbytes for a in host[:27]) / 1e6
-    log(f"dct_unpack, one batch (3 launches): kernel {ms:.4f} ms, plain "
-        f"{pms:.4f} ms; pack {pack_mb:.2f} MB for 2 regions, "
+        call = lambda: yuv.ycc_to_input(y, cb, cr)
+        ms = device_ms(call, ("ycc_kernel",))
+        call_ms = gpu_timer(call)
+        pms = gpu_timer(lambda: yuv.ycc_to_input_reference(y, cb, cr),
+                        iters=3)
+    px = y.numel()
+    nbytes = px * 1.5 + px * 3 * 2
+    log(f"ycc_input [2,4096,4096] 4:2:0 -> bf16: kernel {ms:.4f} ms on the "
+        f"device, call {call_ms:.4f} ms, plain {pms:.4f} ms, "
         f"{nbytes / 1e6:.1f} MB moved")
-    return record("dct_unpack",
-                  "hipt_abmil_atec23_tpu_torch/kernels/csrc/dct_unpack.cu",
-                  "hipt_abmil_atec23_tpu/ops/jpegdct.py:166", worst, ms, pms,
-                  "Y [32768,1024] + Cb, Cr [8192,1024] f32 (one batch of "
-                  "two 4096^2 regions, 3 launches)", nbytes, 0.0,
-                  F32_FLOP_S, None)
+    return record("ycc_input",
+                  "hipt_abmil_atec23_tpu_torch/kernels/csrc/ycc_input.cu",
+                  "hipt_abmil_atec23_tpu/ops/yuv.py:48 (XLA: yuv420_to_rgb "
+                  "and the normalize; no pallas_call)", worst, ms, pms,
+                  "Y [2,4096,4096] + Cb, Cr [2,2048,2048] uint8 -> "
+                  "[2,4096,4096,3] bf16", nbytes, COLOUR_FLOPS_PER_PX * px,
+                  F32_FLOP_S, None) | {"call_ms": call_ms}
 
 
 def _check(name, what, got, want, tol) -> float:
@@ -943,12 +1099,12 @@ def _kernel_label(mangled: str) -> str:
     """gemm_kernel<3>, network_kernel<bf16,64>, ... from a mangled name."""
     m = re.search(r"(layernorm_kernel|gemm_kernel|fused_attention_kernel|"
                   r"flash_attention_kernel|attention_kernel|network_kernel|"
-                  r"fused_mlp_kernel|pool_pass1_tc|pool_pass1)"
+                  r"fused_mlp_kernel|pool_pass1_tc|pool_pass1|ycc_kernel)"
                   r"I(.*?)EE", mangled)
     if not m:
         return mangled
     args = ["bf16" if a.startswith("13") else "f32" if a == "f" else a[2:]
-            for a in re.findall(r"13__nv_bfloat16|Li\d+|f", m.group(2))]
+            for a in re.findall(r"13__nv_bfloat16|L[ib]\d+|f", m.group(2))]
     return f"{m.group(1)}<{','.join(args)}>"
 
 
@@ -978,11 +1134,12 @@ def build_report(build, name: str) -> None:
         log(f"SASS lib{name}.so: no cuobjdump at {cob}")
 
 
-def phase_kernels(dev, dct_slide, regions) -> dict:
+def phase_kernels(dev, dct_slide, planes, regions) -> dict:
     """Each kernel against its plain version: the JSON records, and the
     results of the two paths phase 2 drives (attention() at long N, which
     owns flash_attention, and fused_vit_network, which owns
-    fused_network). ``regions``: two 4096^2 RGB regions, uint8."""
+    fused_network). ``planes``: a plane slide's (rgb, y, cb, cr);
+    ``regions``: two 4096^2 RGB regions, uint8."""
     from hipt_abmil_atec23_tpu_torch.kernels import build
     t0 = time.perf_counter()
     build.build_all(SOURCES)
@@ -991,13 +1148,14 @@ def phase_kernels(dev, dct_slide, regions) -> dict:
     log(f"kernels built in {time.perf_counter() - t0:.1f} s "
         f"({build.BUILD_DIR})")
     for name in ("fused_block", "fused_network", "flash_attention",
-                 "fused_mlp", "gated_pool"):
+                 "fused_mlp", "gated_pool", "dct_decode", "ycc_input"):
         build_report(build, name)
     g = torch.Generator().manual_seed(0)
     records = {"fused_block": _kernel_block(dev, g),
                "gated_pool": _kernel_pool(dev, g),
                "gated_pool_partial": _kernel_pool_partial(dev, g),
-               "dct_unpack": _kernel_unpack(dev, dct_slide)}
+               "dct_decode": _kernel_decode(dev, dct_slide),
+               "ycc_input": _kernel_colour(dev, planes)}
     records["fused_mlp"] = _kernel_mlp(dev, g,
                                        records["fused_block"]["stage_ms"])
     records["fused_attention"] = _kernel_attention(dev, g)
@@ -1078,7 +1236,8 @@ COUNTERS = {"fused_block": fused_vit_block,
             "fused_network": fused_vit_network,
             "gated_pool": gap.gated_attention_pool,
             "gated_pool_partial": gap.gated_attention_pool_partial,
-            "dct_unpack": jpegdct.dct_unpack,
+            "dct_decode": jpegdct.dct_regions_to_planes,
+            "ycc_input": yuv.ycc_to_input,
             "fused_mlp": fm.fused_mlp,
             "fused_attention": fa.fused_attention,
             "flash_attention": fa.flash_attention}
@@ -1171,10 +1330,13 @@ def phase_slice(dev, planes, *, slide=SLIDE, region=REGION, batch=2,
     ms_p = plain_wall * 1e3 / n_regions
     log(f"plane rung, ms per {region}^2 region (decode + H2D + encode, "
         f"batch {batch}): kernel path {ms_k:.2f}, plain path {ms_p:.2f}")
-    for name in ("fused_block", "gated_pool"):
+    for name in ("fused_block", "gated_pool", "ycc_input"):
         if launches[name] == 0:
             raise SystemExit(f"the plane path never launched {name}")
-    return {"launches": launches, "owned": {}, "ms_region": ms_k,
+    if launches["dct_decode"]:
+        raise SystemExit("the plane path launched dct_decode")
+    return {"launches": launches, "owned": {"ycc_input": launches[
+                "ycc_input"]}, "ms_region": ms_k,
             "plain_ms_region": ms_p, "encoder": enc,
             "plain_encoder": plain_enc, "clam": clam, "feats": feats,
             "jobs": jobs, "widths": kw}
@@ -1205,6 +1367,7 @@ def phase_per_op_slice(dev, res, *, region=REGION, batch=2) -> dict:
     enc = build_encoder(cfg, device=dev, model=model)
     plain_enc = build_encoder(cfg, device=dev,
                               model=_plain_copy(model, widths, *flags))
+    plain_enc.plain_unpack = True
     n_coords = len(jobs[0][2])
 
     encode_slides(jobs[:1], enc, region)  # warm-up (cuBLAS, allocator)
@@ -1230,7 +1393,7 @@ def phase_per_op_slice(dev, res, *, region=REGION, batch=2) -> dict:
     log(f"plane rung, ms per {region}^2 region (decode + H2D + encode, "
         f"batch {batch}): per-op kernel path {ms_k:.2f}, per-op plain path "
         f"{ms_p:.2f}, fused-block kernel path {res['ms_region']:.2f}")
-    for name in ("fused_attention", "fused_mlp", "gated_pool"):
+    for name in ("fused_attention", "fused_mlp", "gated_pool", "ycc_input"):
         if launches[name] == 0:
             raise SystemExit(f"the per-op path never launched {name}")
     if launches["fused_block"]:
@@ -1329,11 +1492,11 @@ def phase_dct_slice(dev, res, slides, *, region=REGION) -> dict:
                for t in ("host_ms_mpx", "dev_ms_mpx")}
     log(f"adaptive stream calibration: host_ms_mpx "
         f"{rounded['host_ms_mpx']} dev_ms_mpx {rounded['dev_ms_mpx']}")
-    owned = {n: launches[n] for n in ("dct_unpack", "fused_block",
-                                      "gated_pool")}
-    for name, count in owned.items():
-        if count == 0:
+    for name in ("dct_decode", "ycc_input", "fused_block", "gated_pool"):
+        if launches[name] == 0:
             raise SystemExit(f"the DCT path never launched {name}")
+    owned = {n: launches[n] for n in ("dct_decode", "fused_block",
+                                      "gated_pool")}
     return {"launches": launches, "owned": owned, "ms_region": ms_k,
             "plain_ms_region": ms_p}
 
@@ -1539,27 +1702,26 @@ def _busy_us(spans) -> float:
 
 
 def _profile_dct_decode(dev, dct_slide, region) -> None:
-    """The DCT rung's device decode of one batch already on the card,
-    stage by stage (CUDA events): the three unpack launches, the whole
-    unpack with its DC chain and escape scatters, the planes (adding the
-    IDCT, crop and mask), and RGB."""
+    """The DCT rung's device decode of one batch already on the card
+    (CUDA events): the decode kernel, and pack -> encoder input through
+    the decode and colour kernels, beside the plain chain's planes and
+    input in the same run."""
     coords = grid_coords(dct_slide.level_dimensions[0][0], region)[:2]
     _, pack = _device_pack(dct_slide, coords, dev, region=region)
-    q = pack[27].to(torch.float32)
-    comps = [(pack[9 * c:9 * c + 9], q[c].contiguous()) for c in range(3)]
-    unpack = [(f[1], f[2], f[3], f[4], qc, f[0].shape[1] * f[0].shape[2])
-              for f, qc in comps]
     with torch.inference_mode():
         stages = {
-            "dct_unpack kernel (3 launches)": gpu_timer(
-                lambda: [jpegdct.dct_unpack(*a) for a in unpack]),
-            "unpack + DC chain + escape scatters": gpu_timer(
-                lambda: [jpegdct._unpack_component(*f, qc)
-                         for f, qc in comps]),
-            "planes (+ IDCT, crop, white mask)": gpu_timer(
+            "planes, decode kernels (DC pre-pass + decode)": gpu_timer(
                 lambda: jpegdct.dct_regions_to_planes(*pack)),
-            "RGB (+ upsample, colour)": gpu_timer(
-                lambda: jpegdct.dct_regions_to_rgb(*pack))}
+            "pack -> encoder input, decode + colour kernels": gpu_timer(
+                lambda: yuv.ycc_to_input(
+                    *jpegdct.dct_regions_to_planes(*pack))),
+            "planes, plain chain": gpu_timer(
+                lambda: jpegdct.dct_regions_to_planes_reference(*pack),
+                iters=3),
+            "pack -> encoder input, plain chain": gpu_timer(
+                lambda: yuv.ycc_to_input_reference(
+                    *jpegdct.dct_regions_to_planes_reference(*pack)),
+                iters=3)}
     for name, ms in stages.items():
         log(f"profile: DCT decode, {name}: {ms / len(coords):.3f} "
             f"ms/region")
@@ -1608,7 +1770,6 @@ def phase_profile(dev, encoder, per_op_encoder, planes, dct_slide, path, *,
     and kernel table from torch.profiler over one more stream, the table
     written to ``path``; the same stream and encoder stages for the per-op
     configuration, its table written to ``path``.per_op."""
-    from hipt_abmil_atec23_tpu_torch.ops.yuv import yuv_planes_to_rgb
     s = PlaneSlide(*planes)
     coords = grid_coords(slide, region)
     jobs, n, bs = [("p0", s, coords)], len(coords), encoder.batch_size
@@ -1617,10 +1778,10 @@ def phase_profile(dev, encoder, per_op_encoder, planes, dct_slide, path, *,
         log(f"profile: stream wall ms/region {wall * 1e3 / n:.2f}")
     t0 = time.perf_counter()
     for i in range(0, n, bs):
-        yuv = s.read_regions_yuv420(coords[i:i + bs], 0, (region, region))
+        batch = s.read_regions_yuv420(coords[i:i + bs], 0, (region, region))
     log(f"profile: host plane read ms/region "
         f"{(time.perf_counter() - t0) * 1e3 / n:.2f}")
-    host = [torch.from_numpy(a).pin_memory() for a in yuv]
+    host = [torch.from_numpy(a).pin_memory() for a in batch]
     on_dev = [t.to(dev) for t in host]
     rgb = torch.from_numpy(s.read_regions(coords[:bs], 0, (region, region)))
     rgb = rgb.to(dev)
@@ -1628,8 +1789,10 @@ def phase_profile(dev, encoder, per_op_encoder, planes, dct_slide, path, *,
     stages = {
         "H2D planes (pinned)": gpu_timer(
             lambda: [t.to(dev, non_blocking=True) for t in host]),
-        "YCbCr->RGB + normalize": gpu_timer(
-            lambda: yuv_planes_to_rgb(*on_dev) / 127.5 - 1.0),
+        "YCbCr->RGB + normalize, colour kernel": gpu_timer(
+            lambda: yuv.ycc_to_input(*on_dev)),
+        "YCbCr->RGB + normalize, plain": gpu_timer(
+            lambda: yuv.ycc_to_input_reference(*on_dev)),
         "encoder, planes on the card": gpu_timer(
             lambda: encoder.apply_yuv(*on_dev), iters=3),
         "encoder, RGB on the card": gpu_timer(
@@ -1681,7 +1844,7 @@ def main() -> int:
     rgb = planes[0][0]
     regions = torch.from_numpy(np.stack([rgb[:REGION, :REGION],
                                          rgb[REGION:, REGION:]])).to(dev)
-    kres = phase_kernels(dev, dct_slides[0], regions)
+    kres = phase_kernels(dev, dct_slides[0], planes[0], regions)
     res = phase_slice(dev, planes)
     dres = phase_dct_slice(dev, res, dct_slides)
     pres = phase_per_op_slice(dev, res)

@@ -10,9 +10,10 @@ Each batch rides one of three transfer rungs, cheapest wire bytes first:
 
   1. dct: sparse quantized-DCT packs (ops/jpegdct.py; 0.46 bytes/px on
      chip_smoke.py's quality-80 fixture at its probed caps) for JPEG YCbCr
-     4:2:0 slides on an even region grid; the card unpacks
-     (kernels/csrc/dct_unpack.cu), IDCTs and rebuilds RGB;
-  2. yuv: raw YCbCr planes (1.5 bytes/px for 4:2:0, ops/yuv.py);
+     4:2:0 slides on an even region grid; the card decodes them to planes
+     (kernels/csrc/dct_decode.cu), then as the yuv rung;
+  2. yuv: raw YCbCr planes (1.5 bytes/px for 4:2:0), which the card turns
+     into the encoder's input (kernels/csrc/ycc_input.cu, ops/yuv.py);
   3. rgb: RGB pixels (3 bytes/px).
 
 With ``adaptive_rungs`` the stream picks the rung per batch by predicted
@@ -35,14 +36,14 @@ import torch.nn as nn
 from hipt_abmil_atec23_tpu_torch.device import resolve_device
 from hipt_abmil_atec23_tpu_torch.models.hipt import (
     hipt_eval_normalize, make_hipt_encoder)
-from hipt_abmil_atec23_tpu_torch.ops.jpegdct import _G, dct_regions_to_rgb
-from hipt_abmil_atec23_tpu_torch.ops.yuv import yuv_planes_to_rgb
+from hipt_abmil_atec23_tpu_torch.ops.jpegdct import _G, dct_regions_to_planes
+from hipt_abmil_atec23_tpu_torch.ops.yuv import ycc_to_input
 from hipt_abmil_atec23_tpu_torch.utils.config import EncoderConfig
 
 
 class DctBatch(NamedTuple):
     """One compute batch shipped as sparse quantized-DCT v3 packs instead
-    of pixels. Field order matches ops/jpegdct.dct_regions_to_rgb (27
+    of pixels. Field order matches ops/jpegdct.dct_regions_to_planes (27
     component arrays + qt + valid + off). This is a tuple subtype:
     dispatchers test DctBatch BEFORE the plain-tuple (YUV planes) case."""
     y_dc8: np.ndarray   # [n, h/8, w/8] int8 delta-coded DC
@@ -137,9 +138,10 @@ class Encoder:
     """A fixed-batch region encoder on one device: uint8 RGB [B, S, S, 3],
     YCbCr planes or a sparse-DCT pack -> [B, feat_dim] f32, the normalize
     fused in. ``dct_rung`` offers the sparse-DCT entry to encode_stream
-    (the JAX package's ``apply_dct is not None``). ``plain_unpack`` runs
-    the DCT unpack's plain version on the card too, for a reference pass;
-    the serving path leaves it off."""
+    (the JAX package's ``apply_dct is not None``). On the card the plane
+    and DCT entries run the colour kernel (and the DCT entry the decode
+    kernel before it); ``plain_unpack`` runs both plain versions on the
+    card too, for a reference pass; the serving path leaves it off."""
     model: nn.Module
     batch_size: int
     input_size: int      # spatial size S of one region
@@ -156,13 +158,17 @@ class Encoder:
                   cr: torch.Tensor) -> torch.Tensor:
         """Raw-plane entry: Y [B, S, S], Cb/Cr at 4:2:0 or 4:2:2."""
         with torch.inference_mode():
-            return self.model(yuv_planes_to_rgb(y, cb, cr) / 127.5 - 1.0)
+            return self._encode_planes(y, cb, cr)
 
     def apply_dct(self, *pack: torch.Tensor) -> torch.Tensor:
         """Sparse-DCT entry: the 30 DctBatch fields on the device."""
         with torch.inference_mode():
-            rgb = dct_regions_to_rgb(*pack, plain=self.plain_unpack)
-            return self.model(rgb / 127.5 - 1.0)
+            return self._encode_planes(*dct_regions_to_planes(
+                *pack, plain=self.plain_unpack))
+
+    def _encode_planes(self, y, cb, cr) -> torch.Tensor:
+        return self.model(ycc_to_input(y, cb, cr, self.model.input_dtype,
+                                       plain=self.plain_unpack))
 
 
 def build_encoder(cfg: EncoderConfig, *, device, model: nn.Module = None,

@@ -38,6 +38,12 @@ class HIPT4K(nn.Module):
     def feat_dim(self) -> int:
         return self.vit4k.cfg.output_embed_dim
 
+    @property
+    def input_dtype(self) -> torch.dtype:
+        """The dtype ``forward`` computes in; regions given in it are
+        not cast again."""
+        return self.vit256.cfg.dtype
+
     def forward(self, regions: torch.Tensor) -> torch.Tensor:
         r, h, w, c = regions.shape
         gh, gw = h // 256, w // 256

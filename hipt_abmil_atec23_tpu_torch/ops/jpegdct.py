@@ -3,25 +3,25 @@
 Counterpart of hipt_abmil_atec23_tpu/ops/jpegdct.py. The host ships the
 JPEG codec's own quantized coefficients in the sparse pack v3 (format in the
 JAX module's docstring and in slideio/reader.DctRegions) instead of decoded
-pixels; the card runs
+pixels, and the card decodes them to the planes ops/yuv.py takes:
 
-    unpack (kernels/csrc/dct_unpack.cu) -> DC chain and explicit escape
-    scatters -> dequantized 8x8 IDCT -> crop -> white mask -> planes
+    unpack of the bitmap, nibble and escape streams -> |v| > 127 explicit
+    escapes -> DC chain with its escapes -> dequantize -> 8x8 IDCT -> crop
+    -> white mask -> uint8 planes
 
-and ops/yuv.py rebuilds RGB from the planes.
+On a CUDA pack all of that is kernels/csrc/dct_decode.cu, a DC pre-pass
+and one decode launch (``dct_regions_to_planes``); on a CPU pack, or with
+``plain=True``, it is ``dct_regions_to_planes_reference``: the stream
+expansion by ranks from a ``cumsum`` of the marks and a gather from the
+stream (``dct_unpack_reference``), the DC chain and escapes as scatters
+and cumsums (``_unpack_component``), the IDCT as batched matmuls. The JAX
+package's factorized one-hot expansion (``_expand`` / ``_kexpand``) works
+around the TPU's matrix unit and Mosaic's layout rules and has no
+counterpart here.
 
-The stream expansion (bitmap prefix bytes -> bits -> nibble values ->
-escape bytes at the -8 sentinels -> x quant table) is the CUDA kernel on a
-CUDA tensor and ``dct_unpack_reference`` on a CPU tensor: ranks from a
-``cumsum`` of the marks, then a gather from the stream. The JAX package's
-factorized one-hot expansion (``_expand`` / ``_kexpand``) works around the
-TPU's matrix unit and Mosaic's layout rules and has no counterpart here.
-The DC chain, the ``|v| > 127`` escapes and the DC-delta escapes stay plain
-torch on both devices, as they stay XLA in the JAX package.
-
-Numerics: the f32 IDCT sums in another order than the JAX package's einsum,
-so planes agree with it within 1 LSB; the unpacked coefficients are
-integers times the table and agree bit for bit.
+Numerics: the f32 IDCT sums in another order than the JAX package's einsum
+and than the kernel, so planes agree within 1 LSB; the dequantized
+coefficients are integers times the table and agree bit for bit.
 """
 from __future__ import annotations
 
@@ -70,7 +70,7 @@ def _place(stream: torch.Tensor, marks: torch.Tensor) -> torch.Tensor:
 def dct_unpack_reference(bmc: torch.Tensor, bmb: torch.Tensor,
                          valn: torch.Tensor, esc8: torch.Tensor,
                          q: torch.Tensor, bl: int) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: one component's pack streams
+    """The plain decode's stream expansion: one component's pack streams
     for n regions -> dequantized AC coefficients [n, ng, G*64] f32, the DC
     column 0 (ng = ceil(bl / G) groups per region)."""
     n = bmc.shape[0]
@@ -95,75 +95,14 @@ def dct_unpack_reference(bmc: torch.Tensor, bmb: torch.Tensor,
     return coef * q.to(torch.float32).repeat(_G)
 
 
-def _lib() -> ctypes.CDLL:
-    lib = build.load("dct_unpack")
-    if not getattr(lib, "_hk_bound", False):
-        vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.dct_unpack_launch.argtypes = (
-            [vp] * 6 + [ctypes.c_int64, i, i, i, i, i, vp])
-        lib.dct_unpack_launch.restype = i
-        lib.dct_unpack_error_string.argtypes = [i]
-        lib.dct_unpack_error_string.restype = ctypes.c_char_p
-        lib._hk_bound = True
-    return lib
-
-
-def dct_unpack(bmc: torch.Tensor, bmb: torch.Tensor, valn: torch.Tensor,
-               esc8: torch.Tensor, q: torch.Tensor, bl: int) -> torch.Tensor:
-    """One component's pack streams for n regions -> dequantized AC
-    coefficients [n, ng, G*64] f32.
-
-    bmc [n, ceil(bl/2)] u8, bmb [n, ng*capbm] u8, valn [n, ng*capg/2] u8,
-    esc8 [n, ng*capge] int8, q [64] f32; bl blocks per region. A CUDA pack
-    launches kernels/csrc/dct_unpack.cu; a CPU pack runs
-    ``dct_unpack_reference``."""
-    if bmc.device.type == "cpu":
-        return dct_unpack_reference(bmc, bmb, valn, esc8, q, bl)
-    n = bmc.shape[0]
-    ng = -(-bl // _G)
-    dev = bmc.device
-    for name, t, dt in (("bmc", bmc, torch.uint8), ("bmb", bmb, torch.uint8),
-                        ("valn", valn, torch.uint8),
-                        ("esc8", esc8, torch.int8), ("q", q, torch.float32)):
-        if t.device != dev or t.dtype != dt or not t.is_contiguous():
-            raise ValueError(f"dct_unpack: {name} must be a contiguous {dt} "
-                             f"tensor on {dev}, got {t.dtype} on {t.device}")
-    if (bmc.shape != (n, (bl + 1) // 2) or q.shape != (64,)
-            or any(t.dim() != 2 or t.shape[0] != n or t.shape[1] % ng
-                   for t in (bmb, valn, esc8))):
-        raise ValueError(
-            f"dct_unpack: shapes bmc {tuple(bmc.shape)}, bmb "
-            f"{tuple(bmb.shape)}, valn {tuple(valn.shape)}, esc8 "
-            f"{tuple(esc8.shape)}, q {tuple(q.shape)} do not fit {n} regions "
-            f"of {bl} blocks")
-    out = torch.empty((n, ng, _G * 64), device=dev, dtype=torch.float32)
-    if n == 0:
-        return out
-    lib = _lib()
-    err = lib.dct_unpack_launch(
-        bmc.data_ptr(), bmb.data_ptr(), valn.data_ptr(), esc8.data_ptr(),
-        q.data_ptr(), out.data_ptr(), n * ng, ng, bl, bmb.shape[1] // ng,
-        valn.shape[1] * 2 // ng, esc8.shape[1] // ng,
-        torch.cuda.current_stream(dev).cuda_stream)
-    build.check(lib, "dct_unpack_error_string", err, "dct_unpack")
-    dct_unpack.launches += 1
-    return out
-
-
-dct_unpack.launches = 0  # kernel launches on CUDA
-
-
-def _unpack_component(dc8, bmc, bmb, valn, esc8, aidx, aval, didx, dval, q,
-                      *, plain: bool = False):
+def _unpack_component(dc8, bmc, bmb, valn, esc8, aidx, aval, didx, dval, q):
     """One component's v3 pack -> dequantized coefficient blocks
-    [n, bh*bw, 8, 8] f32. ``plain`` runs the unpack's plain version on any
-    device (the card's plain reference pass); otherwise the device of the
-    pack picks kernel or plain version."""
+    [n, bh*bw, 8, 8] f32 (plain PyTorch; what the decode kernel's tap
+    writes)."""
     n, bh, bw = dc8.shape
     bl = bh * bw
     qf = q.to(torch.float32).contiguous()
-    unpack = dct_unpack_reference if plain else dct_unpack
-    coef = unpack(bmc, bmb, valn, esc8, qf, bl)         # [n, ng, G*64]
+    coef = dct_unpack_reference(bmc, bmb, valn, esc8, qf, bl)  # [n, ng, G*64]
     lg = coef.shape[1] * _G                             # padded block count
     flat = coef.view(-1)
     # |v| > 127 escapes overwrite their sentinels by coefficient index,
@@ -221,14 +160,14 @@ def _crop_planes(plane: torch.Tensor, off: torch.Tensor, out_h: int,
                  rows[:, :, None], cols[:, None, :]]
 
 
-def dct_regions_to_planes(y_dc8, y_bmc, y_bmb, y_valn, y_esc8, y_aidx,
-                          y_aval, y_didx, y_dval, cb_dc8, cb_bmc, cb_bmb,
-                          cb_valn, cb_esc8, cb_aidx, cb_aval, cb_didx,
-                          cb_dval, cr_dc8, cr_bmc, cr_bmb, cr_valn, cr_esc8,
-                          cr_aidx, cr_aval, cr_didx, cr_dval, qt, valid,
-                          off=None, *, plain: bool = False):
-    """Sparse v3 coefficient pack -> uint8 YCbCr planes (Y [n, h, w],
-    Cb/Cr [n, h/2, w/2]); white past the per-region valid extents.
+def dct_regions_to_planes_reference(
+        y_dc8, y_bmc, y_bmb, y_valn, y_esc8, y_aidx, y_aval, y_didx, y_dval,
+        cb_dc8, cb_bmc, cb_bmb, cb_valn, cb_esc8, cb_aidx, cb_aval, cb_didx,
+        cb_dval, cr_dc8, cr_bmc, cr_bmb, cr_valn, cr_esc8, cr_aidx, cr_aval,
+        cr_didx, cr_dval, qt, valid, off=None):
+    """Plain PyTorch version of the decode kernel: sparse v3 coefficient
+    pack -> uint8 YCbCr planes (Y [n, h, w], Cb/Cr [n, h/2, w/2]); white
+    past the per-region valid extents.
 
     qt [3, 64] quant tables (natural order); valid [n, 2] (valid_w,
     valid_h): pixels at or past the extent render white (Y=255,
@@ -240,13 +179,13 @@ def dct_regions_to_planes(y_dc8, y_bmc, y_bmb, y_valn, y_esc8, y_aidx,
     h, w = ybh * 8, ybw * 8
     y = _idct_plane(_unpack_component(
         y_dc8, y_bmc, y_bmb, y_valn, y_esc8, y_aidx, y_aval, y_didx, y_dval,
-        qt[0], plain=plain), ybh, ybw)
+        qt[0]), ybh, ybw)
     cb = _idct_plane(_unpack_component(
         cb_dc8, cb_bmc, cb_bmb, cb_valn, cb_esc8, cb_aidx, cb_aval, cb_didx,
-        cb_dval, qt[1], plain=plain), cbh, cbw)
+        cb_dval, qt[1]), cbh, cbw)
     cr = _idct_plane(_unpack_component(
         cr_dc8, cr_bmc, cr_bmb, cr_valn, cr_esc8, cr_aidx, cr_aval, cr_didx,
-        cr_dval, qt[2], plain=plain), cbh, cbw)
+        cr_dval, qt[2]), cbh, cbw)
     if off is not None and off.shape[-1] == 2:
         h, w = h - 16, w - 16
         y = _crop_planes(y, off, h, w, 1)
@@ -265,6 +204,150 @@ def dct_regions_to_planes(y_dc8, y_bmc, y_bmb, y_valn, y_esc8, y_aidx,
     cb = torch.where(cvalid, cb, torch.full_like(cb, 128))
     cr = torch.where(cvalid, cr, torch.full_like(cr, 128))
     return y, cb, cr
+
+
+# pack fields per component, in DctBatch order, and the dtypes the kernel
+# reads them as
+_FIELDS = ("dc8", "bmc", "bmb", "valn", "esc8", "aidx", "aval", "didx",
+          "dval")
+_DTYPES = (torch.int8, torch.uint8, torch.uint8, torch.uint8, torch.int8,
+           torch.int32, torch.int16, torch.int32, torch.int16)
+_SMEM_LIMIT = 232448  # shared memory a CTA may have on Hopper
+
+
+def _lib() -> ctypes.CDLL:
+    lib = build.load("dct_decode")
+    if not getattr(lib, "_hk_bound", False):
+        vp, i = ctypes.c_void_p, ctypes.c_int
+        lib.dct_decode_launch.argtypes = [vp] * 9 + [i, vp]
+        lib.dct_decode_launch.restype = i
+        lib.dct_decode_smem_bytes.argtypes = [i] * 4
+        lib.dct_decode_smem_bytes.restype = i
+        lib.dct_decode_error_string.argtypes = [i]
+        lib.dct_decode_error_string.restype = ctypes.c_char_p
+        lib._hk_bound = True
+    return lib
+
+
+def _check_pack(pack, dev) -> None:
+    """Raise on what the decode kernel does not take: wrong dtypes,
+    devices or layouts, shapes that do not fit the block grids, and any
+    geometry but 4:2:0."""
+    if len(pack) != 30:
+        raise ValueError(f"dct_regions_to_planes: {len(pack)} fields, "
+                         "expected 27 component arrays + qt, valid, off")
+    n = pack[0].shape[0]
+    for c, comp in enumerate(("y", "cb", "cr")):
+        fields = pack[9 * c:9 * c + 9]
+        for name, t, dt in zip(_FIELDS, fields, _DTYPES):
+            if t.device != dev or t.dtype != dt or not t.is_contiguous():
+                raise ValueError(
+                    f"dct_regions_to_planes: {comp}_{name} must be a "
+                    f"contiguous {dt} tensor on {dev}, got {t.dtype} on "
+                    f"{t.device}")
+        dc8, bmc, bmb, valn, esc8, aidx, aval, didx, dval = fields
+        if dc8.dim() != 3 or dc8.shape[0] != n:
+            raise ValueError(f"dct_regions_to_planes: {comp}_dc8 "
+                             f"{tuple(dc8.shape)} is not [{n}, bh, bw]")
+        bl = dc8.shape[1] * dc8.shape[2]
+        ng = -(-bl // _G)
+        if (bmc.shape != (n, (bl + 1) // 2)
+                or any(t.dim() != 2 or t.shape[0] != n or t.shape[1] % ng
+                       for t in (bmb, valn, esc8))
+                or aidx.dim() != 2 or aidx.shape != aval.shape
+                or didx.dim() != 2 or didx.shape != dval.shape
+                or aidx.shape[0] != n or didx.shape[0] != n):
+            raise ValueError(
+                f"dct_regions_to_planes: {comp} streams "
+                f"{[tuple(t.shape) for t in fields[1:]]} do not fit {n} "
+                f"regions of {bl} blocks")
+    ygrid, cgrid = pack[0].shape[1:], pack[9].shape[1:]
+    if (pack[18].shape[1:] != cgrid or ygrid[0] != 2 * cgrid[0]
+            or ygrid[1] != 2 * cgrid[1]):
+        raise ValueError(
+            f"dct_regions_to_planes: block grids Y {tuple(ygrid)}, Cb "
+            f"{tuple(cgrid)}, Cr {tuple(pack[18].shape[1:])} are not 4:2:0")
+    qt, valid, off = pack[27:]
+    for name, t, shape in (("qt", qt, (3, 64)), ("valid", valid, (n, 2))):
+        if (t.device != dev or t.dtype != torch.int32
+                or not t.is_contiguous() or t.shape != shape):
+            raise ValueError(f"dct_regions_to_planes: {name} must be a "
+                             f"contiguous int32 {shape} tensor on {dev}")
+    if off is not None and (off.device != dev or off.dtype != torch.int32
+                            or not off.is_contiguous()
+                            or off.shape not in ((n, 2), (n, 0))):
+        raise ValueError("dct_regions_to_planes: off must be a contiguous "
+                         f"int32 [{n}, 2] or [{n}, 0] tensor on {dev}")
+
+
+def dct_regions_to_planes(*pack, plain: bool = False, tap: bool = False):
+    """Sparse v3 coefficient pack (the 30 DctBatch fields; ``off`` may be
+    None) -> uint8 YCbCr planes, as ``dct_regions_to_planes_reference``
+    computes them. A CUDA pack runs kernels/csrc/dct_decode.cu, a DC
+    pre-pass and the decode (4:2:0 only; anything else raises); a CPU
+    pack, or ``plain``, runs the plain version. ``tap`` also returns the
+    dequantized coefficient blocks [n, bh*bw, 8, 8] f32 of each
+    component, as ``_unpack_component`` returns them (the kernel writes
+    them beside the planes)."""
+    if len(pack) == 29:
+        pack = (*pack, None)
+    if plain or pack[0].device.type == "cpu":
+        planes = dct_regions_to_planes_reference(*pack)
+        if not tap:
+            return planes
+        return (*planes, [_unpack_component(*pack[9 * c:9 * c + 9],
+                                            pack[27][c]) for c in range(3)])
+    dev = pack[0].device
+    _check_pack(pack, dev)
+    off = pack[29]
+    if off is not None and off.shape[1] == 0:
+        off = None
+    n, ybh, ybw = pack[0].shape
+    crop = 16 if off is not None else 0
+    h, w = ybh * 8 - crop, ybw * 8 - crop
+    if h <= 0 or w <= 0:
+        raise ValueError(f"dct_regions_to_planes: a {ybh * 8}x{ybw * 8} "
+                         "pack has nothing left after the 16-pixel crop")
+    outs = [torch.empty((n, h, w), dtype=torch.uint8, device=dev),
+            *(torch.empty((n, h // 2, w // 2), dtype=torch.uint8,
+                          device=dev) for _ in range(2))]
+    taps = [torch.empty((n, pack[9 * c].shape[1] * pack[9 * c].shape[2],
+                         8, 8), dtype=torch.float32, device=dev)
+            for c in range(3)] if tap else None
+    if n == 0:
+        return (*outs, taps) if tap else tuple(outs)
+    dims = []
+    for c in range(3):
+        dc8, _, bmb, valn, esc8, aidx, _, didx, _ = pack[9 * c:9 * c + 9]
+        ng = -(-(dc8.shape[1] * dc8.shape[2]) // _G)
+        dims += [dc8.shape[1], dc8.shape[2], bmb.shape[1] // ng,
+                 valn.shape[1] * 2 // ng, esc8.shape[1] // ng, aidx.shape[1],
+                 didx.shape[1], outs[c].shape[1], outs[c].shape[2]]
+    lib = _lib()
+    if max(lib.dct_decode_smem_bytes(ybw, *dims[9 * c + 2:9 * c + 5])
+           for c in range(3)) > _SMEM_LIMIT:
+        raise ValueError(f"dct_regions_to_planes: rows of {ybw} blocks at "
+                         "these caps outgrow a CTA's shared memory")
+    ptrs = (ctypes.c_void_p * 27)(*(t.data_ptr() for t in pack[:27]))
+    out_ptrs = (ctypes.c_void_p * 3)(*(t.data_ptr() for t in outs))
+    tap_ptrs = (ctypes.c_void_p * 3)(*(t.data_ptr() for t in taps)) \
+        if tap else None
+    # the DC pre-pass's output: every block's DC, each row's escape range
+    scratch = torch.empty(
+        n * sum(pack[9 * c].shape[1] * (pack[9 * c].shape[2] + 2)
+                for c in range(3)), dtype=torch.int32, device=dev)
+    err = lib.dct_decode_launch(
+        ptrs, out_ptrs, tap_ptrs, (ctypes.c_int * 27)(*dims),
+        pack[27].data_ptr(), pack[28].data_ptr(),
+        off.data_ptr() if off is not None else None, _M8_C,
+        scratch.data_ptr(), n, torch.cuda.current_stream(dev).cuda_stream)
+    build.check(lib, "dct_decode_error_string", err, "dct_regions_to_planes")
+    dct_regions_to_planes.launches += 1
+    return (*outs, taps) if tap else tuple(outs)
+
+
+dct_regions_to_planes.launches = 0  # decodes launched on CUDA (2 kernels)
+_M8_C = (ctypes.c_float * 64)(*_M8.reshape(-1).tolist())
 
 
 def dct_regions_to_rgb(*pack, plain: bool = False) -> torch.Tensor:

@@ -175,3 +175,74 @@ def test_mlp_chain_computes_the_kernels_function():
     want = fm.fused_mlp_reference(*args, with_ln=True, residual=True)
     got = chip_smoke._mlp_chain(*args)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@functools.lru_cache(maxsize=None)
+def _decode_case():
+    """An offset pack of two 256^2 regions of the in-memory DCT slide and
+    its plain planes and coefficient taps (CPU), and the chroma planes of
+    the same pack cropped one chroma sample further right and down."""
+    import numpy as np
+    from hipt_abmil_atec23_tpu_torch.ops import jpegdct
+    from hipt_abmil_atec23_tpu_torch.slideio.synthetic import (
+        DctMemorySlide, he_like_planes)
+    slide = DctMemorySlide(*he_like_planes(7, 1024)[1:])
+    r = slide.read_regions_dct(np.array([[8, 24], [600, 2]]), 0, (256, 256))
+    pack = ([torch.from_numpy(a) for a in r[:27]]
+            + [torch.from_numpy(a) for a in (slide.qt.astype(np.int32),
+                                             r.valid, r.off)])
+    *planes, taps = jpegdct.dct_regions_to_planes(*pack, tap=True)
+    pack[29] = pack[29] + 2          # the chroma crop at off / 2 + 1
+    shifted = jpegdct.dct_regions_to_planes_reference(*pack)
+    return planes, taps, shifted
+
+
+@pytest.mark.parametrize("fault", [None, "coefficient", "column_shift",
+                                   "chroma_crop"])
+def test_decode_check_rejects_planted_faults(fault):
+    """chip_smoke's decode check passes the plain decode against itself
+    and fails one changed coefficient in a tap, a plane shifted by one
+    column, and chroma planes cropped one sample off."""
+    planes, taps, shifted = _decode_case()
+    got_planes, got_taps = list(planes), [t.clone() for t in taps]
+    if fault == "coefficient":
+        got_taps[1][1, 17, 2, 3] += 1.0
+    elif fault == "column_shift":
+        p = planes[0]
+        got_planes[0] = torch.cat([p[..., 1:], p[..., -1:]], -1)
+    elif fault == "chroma_crop":
+        got_planes[1:] = shifted[1:]
+    if fault is None:
+        assert chip_smoke.decode_check("plain", got_planes, got_taps,
+                                       planes, taps) == 0
+    else:
+        with pytest.raises(SystemExit):
+            chip_smoke.decode_check(fault, got_planes, got_taps, planes,
+                                    taps)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("fault", [None, "one_ulp", "swapped_chroma",
+                                   "column_shift"])
+def test_colour_check_rejects_planted_faults(fault, dtype):
+    """chip_smoke's colour check passes the plain input and one that is 1
+    bf16 ulp off, and fails Cb and Cr swapped and a column shift."""
+    from hipt_abmil_atec23_tpu_torch.ops import yuv
+    g = torch.Generator().manual_seed(3)
+    y, cb, cr = (torch.randint(0, 256, s, generator=g, dtype=torch.uint8)
+                 for s in ((2, 32, 48), (2, 16, 24), (2, 16, 24)))
+    want = yuv.ycc_to_input_reference(y, cb, cr, dtype)
+    got = want.clone()
+    if fault == "one_ulp":
+        w = want.float()
+        got = (w + torch.ldexp(torch.ones_like(w),
+                               torch.frexp(w).exponent - 8)).to(dtype)
+    elif fault == "swapped_chroma":
+        got = yuv.ycc_to_input_reference(y, cr, cb, dtype)
+    elif fault == "column_shift":
+        got = torch.cat([want[:, :, 1:], want[:, :, -1:]], 2)
+    if fault in (None, "one_ulp"):
+        chip_smoke.colour_check(str(fault), got, want)
+    else:
+        with pytest.raises(SystemExit):
+            chip_smoke.colour_check(fault, got, want)

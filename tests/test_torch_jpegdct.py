@@ -309,3 +309,72 @@ def test_adaptive_stream_without_a_wire_keeps_the_dct_rung(slide):
     assert cal["host_ms_mpx"]["dct"] != encode.RUNG_HOST_MS_PER_MPX["dct"]
     assert cal["dev_ms_mpx"]["dct"] != encode.RUNG_DEV_MS_PER_MPX["dct"]
     assert cal["host_ms_mpx"]["yuv"] == encode.RUNG_HOST_MS_PER_MPX["yuv"]
+
+
+def _edge_slide():
+    """Hard edges at quality 92: AC values past int8 and DC deltas past
+    int8, so both explicit streams carry entries."""
+    y = np.zeros((512, 512), np.uint8)
+    y[:, 256:] = 255
+    y[::9] = 255
+    y[100:300:7, ::3] = 0
+    c = np.full((256, 256), 128, np.uint8)
+    c[:, 128:] = 20
+    c[::5] = 240
+    return DctMemorySlide(y, c, 255 - c, quality=92)
+
+
+def _assert_ascending_then_pads(idx, what):
+    """Valid entries strictly ascending, every -1 pad after them."""
+    for i, row in enumerate(idx):
+        k = int((row >= 0).sum())
+        assert (row[k:] == -1).all(), (what, i)
+        assert (np.diff(row[:k]) > 0).all(), (what, i)
+
+
+@pytest.mark.parametrize("source", ["native", "numpy"])
+def test_packers_write_explicit_escapes_in_ascending_order(source, packs,
+                                                           slide):
+    """The decode kernel finds a group's |v| > 127 escapes (aidx, by
+    coefficient) and a row's DC escapes (didx, by block) by binary search:
+    both packers must write the valid entries in ascending order with the
+    idx = -1 pads after them. Packs with spilled coefficients and with DC
+    escapes, aligned and off the MCU lattice."""
+    if source == "native":
+        rs = list(packs.values())
+    else:
+        edge = _edge_slide()
+        wide = dict(cap_aesc_y=65536, cap_aesc_c=16384)
+        rs = [edge.read_regions_dct(np.array(c), 0, (256, 256), **caps)
+              for c, caps in (([[0, 0], [256, 256]], TIGHT),
+                              ([[8, 24], [130, 6]], wide),
+                              ([[0, 0]], wide))]
+    n_a = n_d = 0
+    for r in rs:
+        assert (r.status == 0).all()
+        for c in range(3):
+            f = dict(zip(FIELDS, _component(r, c)))
+            _assert_ascending_then_pads(f["aidx"], "aidx")
+            _assert_ascending_then_pads(f["didx"], "didx")
+            n_a += int((f["aidx"] >= 0).sum())
+            n_d += int((f["didx"] >= 0).sum())
+    assert n_a > 50 and n_d > 5, (n_a, n_d)   # the streams are exercised
+
+
+@pytest.mark.parametrize("pack", ["default", "offset"])
+def test_planes_tap_on_the_cpu_is_the_plain_unpack(pack, packs, slide):
+    """On a CPU pack dct_regions_to_planes is its plain version, and its
+    coefficient tap is _unpack_component's output, component by
+    component."""
+    r, qt = packs[pack], slide.dct_probe(0)
+    args = _port_pack(r, qt)
+    before = P.dct_regions_to_planes.launches
+    *planes, taps = P.dct_regions_to_planes(*args, tap=True)
+    want = P.dct_regions_to_planes_reference(*args)
+    assert P.dct_regions_to_planes.launches == before
+    for g, w in zip(planes, want):
+        assert torch.equal(g, w)
+    for c in range(3):
+        f = _torch(_component(r, c))
+        assert torch.equal(taps[c], P._unpack_component(
+            *f, torch.from_numpy(qt[c].astype(np.int32))))

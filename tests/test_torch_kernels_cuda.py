@@ -421,64 +421,121 @@ _WIDE = dict(cap_y_pb=62, cap_c_pb=62, cap_ge_y=992, cap_ge_c=992,
              cap_aesc_y=65536, cap_aesc_c=16384)
 
 
+def _pack_on(r, qt, dev, valid=None):
+    """A DctRegions read as the 30 pack tensors on ``dev``."""
+    return [torch.from_numpy(a).to(dev) for a in r[:27]] + [
+        torch.from_numpy(qt.astype(np.int32)).to(dev),
+        torch.from_numpy(r.valid if valid is None
+                         else np.asarray(valid, np.int32)).to(dev),
+        torch.from_numpy(r.off).to(dev)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("fixture,coords,size,caps", [
-    ("dct_slide", [[0, 0], [1024, 1024]], 1024, {}),
-    ("dct_slide", [[8, 24], [1000, 2]], 512, {}),         # offset grid
-    ("dct_slide", [[0, 0], [512, 256]], 256, dict(        # spilling caps
+@pytest.mark.parametrize("fixture,coords,size,caps,valid", [
+    ("dct_slide", [[0, 0], [1024, 1024]], 1024, {}, None),
+    ("dct_slide", [[8, 24], [1000, 2]], 512, {}, None),    # offset grid
+    ("dct_slide", [[0, 0], [512, 256]], 256, dict(         # spilling caps
         cap_y_pb=4, cap_c_pb=2, cap_ge_y=4, cap_ge_c=2, cap_bm_y=2,
-        cap_bm_c=1, cap_aesc_y=65536, cap_aesc_c=16384)),
-    ("edge_slide", [[0, 0], [256, 256]], 256, _WIDE)])    # int16 escapes
-def test_dct_unpack_kernel_matches_plain(cuda_device, fixture, coords, size,
-                                         caps, request):
-    """The unpack kernel equals its plain version bit for bit (integers
-    times the quant table) per component, and the decoded planes through
-    the kernel equal those through the plain version."""
+        cap_bm_c=1, cap_aesc_y=65536, cap_aesc_c=16384), None),
+    ("edge_slide", [[0, 0], [256, 256]], 256, _WIDE, None),  # int16 escapes
+    ("dct_slide", [[1800, 1796]], 256, {}, None),           # n 1, at the
+    ("dct_slide", [[8, 24], [1000, 2], [1536, 512]], 512, {},  # slide edge
+     [[511, 3], [1, 200], [0, 0]]),                     # n 3, short extents
+    ("edge_slide", [[2, 6], [130, 256], [256, 0]], 256, _WIDE,
+     [[255, 255], [37, 101], [256, 9]])])
+def test_dct_decode_kernel_matches_plain(cuda_device, fixture, coords, size,
+                                         caps, valid, request):
+    """One launch decodes the three components: its coefficient tap equals
+    the plain unpack bit for bit (integers times the quant table), and
+    its planes (crop and white mask included) are within 1 LSB of the
+    plain planes on at most 1e-3 of the samples (the IDCT sums in another
+    order)."""
     from hipt_abmil_atec23_tpu_torch.ops import jpegdct
     slide = request.getfixturevalue(fixture)
     r = slide.read_regions_dct(np.array(coords), 0, (size, size), **caps)
     assert (r.status == 0).all()
-    pack = [torch.from_numpy(a).to(cuda_device) for a in r[:27]] + [
-        torch.from_numpy(slide.qt.astype(np.int32)).to(cuda_device),
-        torch.from_numpy(r.valid).to(cuda_device),
-        torch.from_numpy(r.off).to(cuda_device)]
-    before = jpegdct.dct_unpack.launches
-    for c in range(3):
-        dc8, bmc, bmb, valn, esc8 = pack[9 * c:9 * c + 5]
-        args = (bmc, bmb, valn, esc8, pack[27][c].float().contiguous(),
-                dc8.shape[1] * dc8.shape[2])
-        got = jpegdct.dct_unpack(*args)
-        want = jpegdct.dct_unpack_reference(*args)
-        torch.cuda.synchronize()
-        assert torch.equal(got, want)
-    assert jpegdct.dct_unpack.launches == before + 3
+    pack = _pack_on(r, slide.qt, cuda_device, valid)
+    before = jpegdct.dct_regions_to_planes.launches
     with torch.inference_mode():
-        a = jpegdct.dct_regions_to_planes(*pack)
-        b = jpegdct.dct_regions_to_planes(*pack, plain=True)
-    for x, y in zip(a, b):
-        assert torch.equal(x, y)
+        *planes, taps = jpegdct.dct_regions_to_planes(*pack, tap=True)
+        want = jpegdct.dct_regions_to_planes_reference(*pack)
+        want_taps = [jpegdct._unpack_component(*pack[9 * c:9 * c + 9],
+                                               pack[27][c])
+                     for c in range(3)]
+    torch.cuda.synchronize()
+    assert jpegdct.dct_regions_to_planes.launches == before + 1
+    for t, w in zip(taps, want_taps):
+        assert t.shape == w.shape and torch.equal(t, w)
+    for p, w in zip(planes, want):
+        assert p.dtype == torch.uint8 and p.shape == w.shape
+        d = (p.int() - w.int()).abs()
+        assert d.max() <= 1 and (d > 0).float().mean() <= 1e-3
 
 
 @pytest.mark.cuda
-def test_dct_unpack_kernel_refuses_what_it_does_not_take(cuda_device,
+def test_dct_decode_kernel_refuses_what_it_does_not_take(cuda_device,
                                                          dct_slide):
-    """No quiet fallback: a wrong dtype, a non-contiguous stream or a shape
-    that does not fit the block count raises."""
+    """No quiet fallback: a wrong dtype, a non-contiguous stream, chroma
+    that is not 4:2:0 or a stream that does not fit the block grid
+    raises."""
     from hipt_abmil_atec23_tpu_torch.ops import jpegdct
     r = dct_slide.read_regions_dct(np.array([[0, 0]]), 0, (256, 256))
-    bmc, bmb, valn, esc8 = (torch.from_numpy(a).to(cuda_device)
-                            for a in (r.y_bmc, r.y_bmb, r.y_valn, r.y_esc8))
-    q = torch.ones(64, device=cuda_device)
-    with pytest.raises(ValueError):
-        jpegdct.dct_unpack(bmc, bmb, valn, esc8.to(torch.uint8), q, 1024)
-    with pytest.raises(ValueError):
-        jpegdct.dct_unpack(bmc, bmb, valn, esc8, q.double(), 1024)
-    with pytest.raises(ValueError):
-        jpegdct.dct_unpack(bmc, bmb, valn, esc8, q, 1000)
-    strided = torch.cat([bmb, bmb], 1)[:, ::2]
-    assert strided.shape == bmb.shape and not strided.is_contiguous()
-    with pytest.raises(ValueError):
-        jpegdct.dct_unpack(bmc, strided, valn, esc8, q, 1024)
+    pack = _pack_on(r, dct_slide.qt, cuda_device)
+    bad = {"esc8 as uint8": {4: pack[4].to(torch.uint8)},
+           "qt as f32": {27: pack[27].float()},
+           "strided bmb": {2: torch.cat([pack[2], pack[2]], 1)[:, ::2]},
+           "Y streams as Cb (4:4:4)": dict(enumerate(pack[:9], 9)),
+           "short bmc": {1: pack[1][:, :-1].contiguous()},
+           "valid [n, 3]": {28: torch.zeros(1, 3, dtype=torch.int32,
+                                            device=cuda_device)}}
+    for what, swap in bad.items():
+        args = [swap.get(i, t) for i, t in enumerate(pack)]
+        with pytest.raises(ValueError):
+            jpegdct.dct_regions_to_planes(*args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape_y,shape_c", [
+    ((2, 64, 256), (2, 32, 128)),      # 4:2:0, whole 16-pixel chunks
+    ((3, 34, 50), (3, 17, 25)),        # 4:2:0, odd chroma edges
+    ((2, 64, 256), (2, 64, 128)),      # 4:2:2
+    ((1, 7, 38), (1, 7, 19))])         # 4:2:2, odd rows, ragged chunk
+def test_colour_kernel_matches_plain(shape_y, shape_c, dtype, cuda_device):
+    """The colour kernel keeps the plain version's f32 operations in their
+    order (no FMA contraction, the reciprocal multiply of PyTorch's
+    division by a scalar): equal bit for bit, bf16 and f32, at both
+    chroma layouts, with H and W off its 16-pixel chunk."""
+    from hipt_abmil_atec23_tpu_torch.ops import yuv
+    g = torch.Generator().manual_seed(sum(shape_y))
+    y, cb, cr = (torch.randint(0, 256, s, generator=g,
+                               dtype=torch.uint8).to(cuda_device)
+                 for s in (shape_y, shape_c, shape_c))
+    before = yuv.ycc_to_input.launches
+    with torch.inference_mode():
+        got = yuv.ycc_to_input(y, cb, cr, dtype)
+        want = yuv.ycc_to_input_reference(y, cb, cr, dtype)
+    torch.cuda.synchronize()
+    assert yuv.ycc_to_input.launches == before + 1
+    assert got.shape == (*shape_y, 3) and got.dtype == dtype
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_colour_kernel_refuses_what_it_does_not_take(cuda_device):
+    from hipt_abmil_atec23_tpu_torch.ops import yuv
+    y = torch.zeros(2, 32, 64, dtype=torch.uint8, device=cuda_device)
+    c = torch.zeros(2, 16, 32, dtype=torch.uint8, device=cuda_device)
+    for args, dtype in (((y.short(), c, c), torch.bfloat16),
+                        ((y, c, c), torch.float16),
+                        ((y, torch.cat([c, c], 2)[:, :, ::2], c),
+                         torch.bfloat16),
+                        ((y, c[:, :, :30].contiguous(),
+                          c[:, :, :30].contiguous()), torch.bfloat16),
+                        ((y, c, c[:, :8].contiguous()), torch.bfloat16),
+                        ((y[0], c[0], c[0]), torch.bfloat16)):
+        with pytest.raises(ValueError):
+            yuv.ycc_to_input(*args, dtype)
 
 
 def _within(got, want, atol, rtol):
