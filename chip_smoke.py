@@ -65,6 +65,25 @@ Phases (any failure exits non-zero, and no result line is printed):
   7. serve: serve_once over two synthetic JPEG YCbCr 4:2:0 slides of 8192^2
      on disk (skipped, with a line saying what is missing, where cv2, h5py
      or the native reader's build dependencies are absent).
+  9. encode stage (after phase 7): B.1 at the vit256 encoder's shape
+     [256, 264, 384] against its plain version; then, counts zeroed,
+     encode_stream(stage=True) on the plane and DCT slides at the default
+     budget and a 1-byte one (a flush per batch, at least three), the
+     features held against the overlapped stream's (max |d| <= 1e-6), ms
+     per region of each; a stream paced at 200 MB/s with a 200 MB/s wire
+     hint (wire_mbps_final in [0.8, 1.05] x 200, wall >= 0.7 x its bytes
+     at the pace), its rung decisions and first wire samples beside an
+     unpaced stream's; HIPT's mean256 and concat on one batch of two
+     regions against the plain pass (concat = [mean256 | cls4k] bit for
+     bit); the vit256 encoder (seeded full-width ViT-S, bf16) on one
+     slide's 256^2 patches, 256 per batch, against its plain pass
+     (patches per second printed); the RGB rung under the macenko
+     transform (and a resize to 224 where cv2 imports) against
+     encoder.apply(transform(batch)). fused_block, dct_decode and ycc_input
+     must be non-zero after it. Then, where cv2, h5py, pandas and the
+     native reader are present (else one line says what is missing):
+     seg_and_patch -> encode_many on two synthetic TIFFs, the bags against
+     encode_slide, and the CLI's tile and encode on the same slides.
   8. profile (only with --profile PATH): where one warm encode_stream's
      time goes, stage by stage (the colour and DCT decode stages through
      the kernels beside their plain chains), and torch.profiler kernel
@@ -1498,7 +1517,7 @@ def phase_dct_slice(dev, res, slides, *, region=REGION) -> dict:
     owned = {n: launches[n] for n in ("dct_decode", "fused_block",
                                       "gated_pool")}
     return {"launches": launches, "owned": owned, "ms_region": ms_k,
-            "plain_ms_region": ms_p}
+            "plain_ms_region": ms_p, "feats": feats}
 
 
 # ------------------------------------------------------------------ phase 6
@@ -1643,15 +1662,24 @@ def phase_sharded(dev, *, n=100_000, d_in=1024, size_arg="small",
 
 
 # ------------------------------------------------------------------ phase 7
-def phase_serve(dev, encoder, clam, *, slide=SLIDE, region=REGION) -> None:
+def missing_file_deps(modules=("cv2", "h5py")):
+    """What a phase on slide files lacks among ``modules`` and the native
+    reader's build, or None; decided by imports alone, before the phase."""
+    import importlib
     try:
-        import cv2  # noqa: F401
-        import h5py  # noqa: F401
+        for m in modules:
+            importlib.import_module(m)
         from hipt_abmil_atec23_tpu_torch.slideio import native
         native.get_lib()
     except (ImportError, OSError, subprocess.CalledProcessError) as e:
-        what = getattr(e, "name", None) or \
+        return getattr(e, "name", None) or \
             "the native slide reader's build (libtiff/libjpeg headers)"
+    return None
+
+
+def phase_serve(dev, encoder, clam, *, slide=SLIDE, region=REGION) -> None:
+    what = missing_file_deps()
+    if what:
         log(f"serve phase: skipped, missing {what}")
         return
     from hipt_abmil_atec23_tpu_torch.engine.serve import (
@@ -1812,6 +1840,324 @@ def phase_profile(dev, encoder, per_op_encoder, planes, dct_slide, path, *,
                     "per-op")
 
 
+# ------------------------------------------------------------------ phase 9
+PACE_MBPS = 200.0
+PACE_WINDOW = (0.8, 1.05)  # paced wire_mbps_final, in units of the pace
+PACE_WALL = 0.7            # wall >= PACE_WALL x h2d bytes at the pace
+STAGED_TOL = 1e-6          # staged against overlapped features, max |d|
+VIT256_BATCH = 256         # patches per batch: B.1 at [256, 264, 384]
+PATCH = 256                # the vit256 encoder's patch size
+
+
+def paced_rate_check(stats, wall_s, pace) -> float:
+    """The pace shim's window: the stream's final wire estimate within
+    PACE_WINDOW x ``pace`` and its wall at least PACE_WALL x its H2D bytes
+    at ``pace``; returns the final estimate."""
+    final = stats.get("wire_mbps_final")
+    floor_s = stats["h2d_bytes"] / 1e6 / pace
+    lo, hi = (f * pace for f in PACE_WINDOW)
+    log(f"paced stream at {pace:g} MB/s: wire_mbps_final "
+        f"{final if final is None else round(final, 2)} (in [{lo:g}, "
+        f"{hi:g}]), wall {wall_s:.3f} s against {floor_s:.3f} s of bytes "
+        f"at the pace (>= {PACE_WALL} x)")
+    if final is None or not lo <= final <= hi:
+        raise SystemExit(f"paced wire estimate {final} outside [{lo}, {hi}]")
+    if wall_s < PACE_WALL * floor_s:
+        raise SystemExit(f"paced stream took {wall_s:.3f} s, under "
+                         f"{PACE_WALL} x {floor_s:.3f} s: not throttled")
+    return final
+
+
+def staged_check(what, staged, overlapped, tol=STAGED_TOL) -> float:
+    """Staged-stream features ({slide: [N, D]}, in yield order) against the
+    overlapped stream's: the same slides in the same order, shapes equal,
+    finite, max |d| <= tol; returns max |d|."""
+    if list(staged) != list(overlapped):
+        raise SystemExit(f"{what}: staged stream yielded {list(staged)}, "
+                         f"the overlapped {list(overlapped)}")
+    worst = 0.0
+    for sid, f in staged.items():
+        o = overlapped[sid]
+        if f.shape != o.shape or not np.isfinite(f).all():
+            raise SystemExit(f"{what} {sid}: staged features {f.shape}, "
+                             f"overlapped {o.shape}")
+        worst = max(worst, float(np.abs(f - o).max(initial=0.0)))
+    log(f"{what}: staged against overlapped features, max |d| {worst:.3g} "
+        f"(<= {tol:g})")
+    if worst > tol:
+        raise SystemExit(f"{what}: staged features disagree ({worst})")
+    return worst
+
+
+def _variant_check(what, got, want):
+    cos, rel = feature_agreement({"b": got}, {"b": want})
+    log(f"{what} kernel vs plain: min cosine {cos:.6f} (>= 0.999), max rel "
+        f"L2 {rel:.3g} (<= 2e-2)")
+    if not (np.isfinite(got).all() and cos >= 0.999 and rel <= 2e-2):
+        raise SystemExit(f"{what} features disagree with the plain pass")
+
+
+def _vit256_encoders(dev, vit256_cfg):
+    """The vit256 encoder (seeded bf16 weights, every block B.1) and its
+    plain twin on the same weights."""
+    from hipt_abmil_atec23_tpu_torch.models.vit import VIT_CONFIGS, vit_small
+    cfg = vit256_cfg or VIT_CONFIGS["vit_small"]
+    ecfg = EncoderConfig(model_type="vit256", batch_size=VIT256_BATCH,
+                         dtype="bfloat16")
+    model = vit_small(torch.bfloat16, use_fused_block=True, cfg=cfg,
+                      generator=torch.Generator().manual_seed(2))
+    plain = vit_small(torch.bfloat16, use_fused_block=True, cfg=cfg)
+    plain.load_state_dict(model.state_dict())
+    for m in plain.modules():
+        if isinstance(m, Block):
+            m.plain = True
+    enc = build_encoder(ecfg, device=dev, model=model)
+    plain_enc = build_encoder(ecfg, device=dev, model=plain)
+    plain_enc.plain_unpack = True
+    return enc, plain_enc
+
+
+def phase_encode_stage(dev, res, dres, dct_slides, planes, *,
+                       region=REGION) -> dict:
+    """The encode stage's device half on phase 3-4's in-memory slides:
+    staged against overlapped streams on the plane and DCT rungs, the pace
+    shim, the vit256 encoder on 256 px patches, HIPT's mean256 / concat
+    variants, and the RGB rung under a host transform (and a resize where
+    cv2 imports). ``res`` / ``dres``: phase 3's and phase 4's results;
+    ``planes``: one plane slide's (rgb, y, cb, cr)."""
+    import dataclasses
+    from hipt_abmil_atec23_tpu_torch.ops.augment import build_transform
+    enc, plain_enc = res["encoder"], res["plain_encoder"]
+    cuda = dev.type == "cuda"
+    out = {}
+
+    # B.1 at the vit256 encoder's shape, before the counts are zeroed
+    g = torch.Generator().manual_seed(9)
+    d = 384
+    blk = _random_block(d, 6, g, dev)
+    x = torch.randn(VIT256_BATCH, 264, d, generator=g).to(dev, torch.bfloat16)
+    with torch.inference_mode():
+        _check("fused_block", f"[{VIT256_BATCH},264,{d}] bf16 (vit256), "
+               "n_valid 257", fused_vit_block(x, blk, num_heads=6,
+                                              n_valid=257),
+               fused_vit_block_reference(x, blk, num_heads=6, n_valid=257),
+               BLOCK_TOL)
+        if cuda:
+            out["block_ms_vit256"] = gpu_timer(lambda: fused_vit_block(
+                x, blk, num_heads=6, n_valid=257))
+            log(f"fused_block [{VIT256_BATCH},264,{d}]: kernel "
+                f"{out['block_ms_vit256']:.4f} ms")
+    del blk, x
+
+    zero_counts()
+    # (a) staged against overlapped, plane rung and DCT rung (phase 4's
+    # stream is the DCT rung's overlapped one)
+    jobs = res["jobs"]
+    n = sum(len(c) for _, _, c in jobs)
+    plane_feats, wall = encode_slides(jobs, enc, region, adaptive_rungs=False)
+    ms = {"plane overlapped": wall * 1e3 / n,
+          "DCT overlapped (phase 4)": dres["ms_region"]}
+    djobs = [(f"dct{i}", s, c) for i, (s, (_, _, c)) in
+             enumerate(zip(dct_slides, jobs))]
+    for rung, rjobs, overlapped in (("plane", jobs, plane_feats),
+                                    ("DCT", djobs, dres["feats"])):
+        for budget in (None, 1):  # the default, then a flush per batch
+            stats = {}
+            kw = {} if budget is None else {"stage_budget_bytes": budget}
+            feats, wall = encode_slides(rjobs, enc, region, stage=True,
+                                        adaptive_rungs=False, stats=stats,
+                                        **kw)
+            label = f"{rung} staged" + ("" if budget is None else
+                                        ", 1-byte budget")
+            staged_check(f"{label}, {stats['stage_flushes']} flushes", feats,
+                         overlapped)
+            if budget is not None and stats["stage_flushes"] < 3:
+                raise SystemExit(f"{label}: fewer than three flushes")
+            ms[label] = wall * 1e3 / n
+    log(f"encode stage, ms per {region}^2 region (decode + H2D + encode, "
+        f"batch {enc.batch_size}, {n} regions): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in ms.items()))
+    out["ms_region"] = ms
+
+    # (b) the pace shim on the DCT slides, every rung open
+    unpaced = {}
+    encode_slides(djobs, enc, region, stats=unpaced)
+    paced = {}
+    _, wall = encode_slides(djobs, enc, region, stats=paced,
+                            wire_mbps_hint=PACE_MBPS, pace_put_mbps=PACE_MBPS)
+    first = lambda s: [round(v, 1) for v in s.get("wire_mbps_samples",
+                                                  [])[:3]]
+    log(f"rung decisions: paced {paced.get('rung_decisions')} (regions "
+        f"dct/yuv/rgb {paced.get('regions_dct', 0)}/"
+        f"{paced.get('regions_yuv', 0)}/{paced.get('regions_rgb', 0)}), "
+        f"unpaced {unpaced.get('rung_decisions')} (regions dct/yuv/rgb "
+        f"{unpaced.get('regions_dct', 0)}/{unpaced.get('regions_yuv', 0)}/"
+        f"{unpaced.get('regions_rgb', 0)})")
+    log(f"first three wire samples, MB/s: paced {first(paced)}, unpaced "
+        f"{first(unpaced)}")
+    out["paced_mbps"] = paced_rate_check(paced, wall, PACE_MBPS)
+
+    # (c) HIPT mean256 and concat on one batch of two regions (plane entry)
+    rgb, y, cb, cr = planes
+    yb = torch.from_numpy(np.stack([y[:region, :region],
+                                    y[region:2 * region, region:2 * region]]))
+    h = region // 2
+    cbb, crb = (torch.from_numpy(np.stack([c[:h, :h], c[h:2 * h, h:2 * h]]))
+                for c in (cb, cr))
+    batch = [t.to(dev) for t in (yb, cbb, crb)]
+    got, want = {}, {}
+    for variant in ("cls4k", "mean256", "concat"):
+        vcfg = EncoderConfig(batch_size=2, hipt_features=variant)
+        got[variant] = build_encoder(vcfg, device=dev, model=enc.model
+                                     ).apply_yuv(*batch).float().cpu().numpy()
+        pe = build_encoder(vcfg, device=dev, model=plain_enc.model)
+        pe.plain_unpack = True
+        want[variant] = pe.apply_yuv(*batch).float().cpu().numpy()
+    d256 = got["mean256"].shape[1]
+    for variant in ("mean256", "concat"):
+        _variant_check(f"HIPT {variant} [{region}^2 x 2]", got[variant],
+                       want[variant])
+    if not (np.array_equal(got["concat"][:, d256:], got["cls4k"])
+            and np.array_equal(got["concat"][:, :d256], got["mean256"])):
+        raise SystemExit("concat is not [mean256 | cls4k] of the same batch")
+    log(f"HIPT concat [{got['concat'].shape[1]}] = [mean256 | cls4k] of the "
+        f"same batch, bit for bit")
+
+    # (d) the vit256 encoder on one slide's 256 px patches
+    venc, vplain = _vit256_encoders(dev, res["widths"].get("vit256_cfg"))
+    slide = PlaneSlide(*planes)
+    side = rgb.shape[0]
+    pcoords = grid_coords(side, PATCH)
+    before = read_counts()["fused_block"]
+    vfeats, vwall = encode_slides([("v", slide, pcoords)], venc, PATCH)
+    out["launches_vit256"] = read_counts()["fused_block"] - before
+    vplain_feats, _ = encode_slides([("v", slide, pcoords)], vplain, PATCH)
+    _variant_check(f"vit256 [{len(pcoords)} x {PATCH}^2]", vfeats["v"],
+                   vplain_feats["v"])
+    out["patches_per_s"] = len(pcoords) / vwall
+    log(f"vit256: {len(pcoords)} patches of {PATCH}^2 at batch "
+        f"{VIT256_BATCH} in {vwall:.3f} s, {out['patches_per_s']:.1f} "
+        f"patches/s (decode + H2D + encode); B.1 launches "
+        f"{out['launches_vit256']}")
+
+    # (e) the RGB rung under a host transform (and a resize with cv2)
+    tcoords = pcoords[:VIT256_BATCH // 2]
+    cases = [("macenko", 0)]
+    try:
+        import cv2  # noqa: F401
+        cases.append(("macenko", 224))
+    except ImportError:
+        log("encode stage: target_patch_size skipped, missing cv2")
+    for preset, tps in cases:
+        stats = {}
+        tf = build_transform(preset)
+        feats, _ = encode_slides([("t", slide, tcoords)], venc, PATCH,
+                                 transform=tf, target_patch_size=tps,
+                                 stats=stats)
+        pix = slide.read_regions(tcoords, 0, (PATCH, PATCH))
+        if tps:
+            pix = np.stack([cv2.resize(p, (tps, tps),
+                                       interpolation=cv2.INTER_AREA)
+                            for p in pix])
+        ref = build_transform(preset)(pix)
+        pad = np.zeros((VIT256_BATCH - len(ref),) + ref.shape[1:], np.uint8)
+        want_t = venc.apply(torch.from_numpy(np.concatenate([ref, pad]))
+                            .to(dev)).float().cpu().numpy()[:len(ref)]
+        diff = float(np.abs(feats["t"] - want_t).max())
+        log(f"RGB rung, transform {preset}"
+            + (f", target_patch_size {tps}" if tps else "")
+            + f": regions_rgb {stats.get('regions_rgb', 0)} of "
+            f"{len(tcoords)}, max |d| against encoder.apply(transform("
+            f"batch)) {diff:.3g} (<= {STAGED_TOL:g})")
+        if stats.get("regions_rgb", 0) != len(tcoords) or diff > STAGED_TOL:
+            raise SystemExit(f"transform {preset} ({tps}): the stream "
+                             "disagrees with encoder.apply(transform(batch))")
+
+    if cuda:
+        torch.cuda.synchronize(dev)
+    launches = read_counts()
+    log(f"encode stage launches: {launches}")
+    for name in ("fused_block", "dct_decode", "ycc_input"):
+        if launches[name] == 0:
+            raise SystemExit(f"the encode stage never launched {name}")
+    out.update(launches=launches, owned={})
+    return out
+
+
+def phase_files(dev, encoder, *, slide=SLIDE, region=REGION,
+                cli_encode=("--batch_size", "2")) -> None:
+    """The encode stage's file-bound half on two synthetic JPEG YCbCr TIFFs:
+    seg_and_patch -> encode_many -> the stored bags against encode_slide,
+    then the CLI's tile and encode on the same slides (its HIPT_4K is the
+    same seeded weights as ``encoder``'s)."""
+    from hipt_abmil_atec23_tpu_torch import cli
+    from hipt_abmil_atec23_tpu_torch.data.bags import FeatureBagStore
+    from hipt_abmil_atec23_tpu_torch.engine.encode import (
+        encode_many, encode_slide)
+    from hipt_abmil_atec23_tpu_torch.slideio.patching import load_coords_h5
+    from hipt_abmil_atec23_tpu_torch.slideio.pipeline import seg_and_patch
+    from hipt_abmil_atec23_tpu_torch.slideio.reader import open_slide
+    from hipt_abmil_atec23_tpu_torch.slideio.synthetic import (
+        write_synthetic_slide)
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(
+            os.path.abspath(__file__))) as d:
+        src = os.path.join(d, "slides")
+        os.makedirs(src)
+        for i in range(2):
+            write_synthetic_slide(os.path.join(src, f"s{i}.tif"), slide,
+                                  slide, n_levels=3, ycbcr420=True, seed=i)
+        tiles = os.path.join(d, "tiles")
+        tcfg = TileConfig(patch_size=region, step_size=region,
+                          seg=SegConfig(use_otsu=True, a_t=1))
+        t0 = time.perf_counter()
+        res = seg_and_patch(src, tiles, tcfg, verbose=False)
+        t_tile = time.perf_counter() - t0
+        sids = sorted(f[:-3] for f in os.listdir(os.path.join(
+            tiles, "patches")))
+        if list(res.df["status"]) != ["processed", "processed"] or not sids:
+            raise SystemExit(f"tile stage: {res.df.to_dict('records')}")
+        jobs = [(os.path.join(src, f"{sid}.tif"),
+                 os.path.join(tiles, "patches", f"{sid}.h5"), sid)
+                for sid in sids]
+        store = FeatureBagStore(os.path.join(d, "feats"))
+        t0 = time.perf_counter()
+        done, failed = encode_many(jobs, encoder, store, verbose=False)
+        t_enc = time.perf_counter() - t0
+        if done != sids or failed:
+            raise SystemExit(f"encode_many: done {done}, failed {failed}")
+        bags, solo = {}, {}
+        for path, h5, sid in jobs:
+            coords, _ = load_coords_h5(h5)
+            s = open_slide(path)
+            try:
+                solo[sid] = encode_slide(s, coords, encoder,
+                                         region_size=region)
+            finally:
+                s.close()
+            bags[sid] = store.load_features(sid)
+        cos, rel = feature_agreement(bags, solo)
+        log(f"file stage: tile {t_tile:.2f} s, encode_many {t_enc:.2f} s "
+            f"for {len(sids)} slides; stored bags vs encode_slide min cosine "
+            f"{cos:.6f}, max rel L2 {rel:.3g}")
+        if cos < 0.999 or rel > 2e-2:
+            raise SystemExit("stored bags disagree with encode_slide")
+        ctiles, cfeats = os.path.join(d, "cli_tiles"), os.path.join(
+            d, "cli_feats")
+        cli.main(["tile", "--source", src, "--save_dir", ctiles,
+                  "--patch_size", str(region), "--step_size", str(region),
+                  "--use_otsu", "--a_t", "1", "--device", dev.type])
+        cli.main(["encode", "--data_h5_dir", ctiles, "--data_slide_dir",
+                  src, "--feat_dir", cfeats, "--device", dev.type,
+                  *cli_encode])
+        cli_bags = {sid: FeatureBagStore(cfeats).load_features(sid)
+                    for sid in bags}
+        cos, rel = feature_agreement(cli_bags, bags)
+        log(f"file stage: CLI tile + encode bags vs encode_many's min "
+            f"cosine {cos:.6f}, max rel L2 {rel:.3g}")
+        if cos < 0.999 or rel > 2e-2:
+            raise SystemExit("the CLI's bags disagree with encode_many's")
+
+
 def set_launches(records, paths) -> None:
     """Each record's launches from the run of the path that owns its kernel
     (``paths``: name -> a phase's result, whose "owned" holds the counts
@@ -1850,12 +2196,22 @@ def main() -> int:
     pres = phase_per_op_slice(dev, res)
     sres = phase_sharded(dev)
     phase_serve(dev, res["encoder"], res["clam"])
+    eres = phase_encode_stage(dev, res, dres, dct_slides, planes[0])
+    missing = missing_file_deps(("cv2", "h5py", "pandas"))
+    if missing:
+        log(f"encode stage, file-bound part: skipped, missing {missing}")
+    else:
+        phase_files(dev, res["encoder"])
     if args.profile:
         phase_profile(dev, res["encoder"], pres["encoder"], planes[0],
                       dct_slides[0], args.profile)
     records = kres["records"]
     set_launches(records, {**kres["paths"], "plane": res, "dct": dres,
-                           "per_op": pres, "sharded": sres})
+                           "per_op": pres, "sharded": sres,
+                           "encode_stage": eres})
+    records["fused_block"].update(
+        launches_vit256=eres["launches_vit256"],
+        ms_256x264x384=eres.get("block_ms_vit256"))
     log(f"card: {smi}")
     log(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {

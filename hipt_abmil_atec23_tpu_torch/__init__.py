@@ -3,11 +3,13 @@ hipt_abmil_atec23_tpu.
 
 The JAX package stays the reference; this package mirrors its layout so each
 module has a counterpart there, and imports nothing of it. It runs the
-serving path: slide tiling, the transfer rungs (sparse-DCT packs, YCbCr
-planes, RGB) with their decode on the device, the HIPT_4K region encoder
-(ViT-256 -> ViT-4K) and the CLAM_SB gated-attention MIL head; and exact
-full-bag MIL inference and training with the instance axis sharded over
-processes (torch.distributed).
+tile stage (segmentation, coordinates, stitches, resume journal), the
+encode stage (feature bags from slides and coords h5s; HIPT_4K and vit256
+encoders) and the serving path: slide tiling, the transfer rungs
+(sparse-DCT packs, YCbCr planes, RGB) with their decode on the device, the
+HIPT_4K region encoder (ViT-256 -> ViT-4K) and the CLAM_SB gated-attention
+MIL head; and exact full-bag MIL inference and training with the instance
+axis sharded over processes (torch.distributed).
 
 The DCT unpack, every transformer block and the MIL pooling run through
 CUDA kernels written by hand for sm_90a (``kernels/csrc``). The rule is by
@@ -17,17 +19,19 @@ runs the kernel's plain PyTorch version beside it.
 Subpackages:
   models   — ViT-256 / ViT-4K / HIPT4K, CLAM_SB, checkpoint bridges
   ops      — DCT decode, fused ViT block, gated-attention pooling, YCbCr
-             decode, masking
-  engine   — encoder + slide stream with its rung selector, serving,
-             host metrics, optimizers
+             decode, masking, host transforms
+  engine   — encoders + slide stream with its rung selector, the encode
+             stage, serving, host metrics, optimizers
   parallel — process groups, meshes, instance-sharded forward and trainer
-  slideio  — native slide reader binding, segmentation, coordinates,
-             synthetic and in-memory slides
+  slideio  — native slide reader binding, segmentation, coordinates, the
+             tile stage, stitches, legacy helpers, synthetic and in-memory
+             slides
   utils    — the configuration dataclasses, seeding
   data     — feature-bag storage, full-bag datasets, manifests, synthetic
              bags
   explain  — attention blockmaps
   kernels  — CUDA sources and their nvcc/ctypes build
+  cli      — the tile, encode and serve commands
 """
 
 __version__ = "0.1.0"

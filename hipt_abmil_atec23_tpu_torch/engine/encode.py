@@ -1,10 +1,19 @@
-"""Feature extraction: slides + coords -> per-slide HIPT_4K feature bags.
+"""Feature extraction: slides + coords -> per-slide feature bags (HIPT_4K
+region features, or ViT-256 patch features).
 
 Counterpart of hipt_abmil_atec23_tpu/engine/encode.py:
 
   one decode worker (native threaded region reads, ``prefetch`` batches
-  ahead) -> pinned host tensors -> H2D on a dedicated CUDA stream ->
-  encoder on the current stream, collected one batch deep
+  ahead; host resize and transform) -> pinned host tensors -> H2D on a
+  dedicated CUDA stream -> encoder on the current stream, collected one
+  batch deep
+
+or, with ``stage=True``, every batch copied to the card (up to a byte
+budget per flush) before the flush dispatches its computes back to back.
+``encode_many`` is the encode stage over slide files and coords h5s: the
+next slide group opens on a thread, a writer thread persists the bags in
+the reference's layout (data/bags.py), and a slide that cannot be opened is
+reported, not fatal.
 
 Each batch rides one of three transfer rungs, cheapest wire bytes first:
 
@@ -14,20 +23,25 @@ Each batch rides one of three transfer rungs, cheapest wire bytes first:
      (kernels/csrc/dct_decode.cu), then as the yuv rung;
   2. yuv: raw YCbCr planes (1.5 bytes/px for 4:2:0), which the card turns
      into the encoder's input (kernels/csrc/ycc_input.cu, ops/yuv.py);
-  3. rgb: RGB pixels (3 bytes/px).
+  3. rgb: RGB pixels (3 bytes/px); the only rung for a host transform or
+     resize.
 
 With ``adaptive_rungs`` the stream picks the rung per batch by predicted
-pipeline cost (``select_rung``) once it has a wire-rate estimate, from
-three EWMAs it keeps itself: host decode ms/Mpx per rung, device ms/Mpx
-per rung, and the wire rate from CUDA events around each H2D on the copy
-stream. A CPU encoder has no wire, so it keeps the byte-lightest rung.
+pipeline cost (``select_rung``) once it has a wire-rate estimate (seeded by
+``wire_mbps_hint``), from three EWMAs it keeps itself: host decode ms/Mpx
+per rung, device ms/Mpx per rung, and the wire rate from CUDA events around
+each H2D on the copy stream. A CPU encoder has no wire, so it keeps the
+byte-lightest rung unless a hint or the pace shim (``pace_put_mbps``) gives
+it a rate.
 """
 from __future__ import annotations
 
+import queue
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
-from typing import Iterable, NamedTuple, Optional
+from typing import Callable, Iterable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -135,24 +149,27 @@ def select_rung(feasible, wire_mbps, region_px, dct_bytes_per_px=None,
 
 @dataclass
 class Encoder:
-    """A fixed-batch region encoder on one device: uint8 RGB [B, S, S, 3],
-    YCbCr planes or a sparse-DCT pack -> [B, feat_dim] f32, the normalize
-    fused in. ``dct_rung`` offers the sparse-DCT entry to encode_stream
-    (the JAX package's ``apply_dct is not None``). On the card the plane
-    and DCT entries run the colour kernel (and the DCT entry the decode
-    kernel before it); ``plain_unpack`` runs both plain versions on the
-    card too, for a reference pass; the serving path leaves it off."""
+    """A fixed-batch encoder on one device: uint8 RGB [B, S, S, 3], YCbCr
+    planes or a sparse-DCT pack -> [B, feat_dim] f32, the normalize fused
+    in. ``features``: the ``model.asset_dict`` entry to return (HIPT's
+    mean256 / concat variants), or None for ``model(x)``. ``dct_rung``
+    offers the sparse-DCT entry to encode_stream (the JAX package's
+    ``apply_dct is not None``). On the card the plane and DCT entries run
+    the colour kernel (and the DCT entry the decode kernel before it);
+    ``plain_unpack`` runs both plain versions on the card too, for a
+    reference pass; the serving path leaves it off."""
     model: nn.Module
     batch_size: int
-    input_size: int      # spatial size S of one region
+    input_size: int      # spatial size S of one region or patch
     feat_dim: int
     device: torch.device
     dct_rung: bool = True
     plain_unpack: bool = False
+    features: Optional[str] = None
 
     def apply(self, batch_u8: torch.Tensor) -> torch.Tensor:
         with torch.inference_mode():
-            return self.model(hipt_eval_normalize(batch_u8))
+            return self._forward(hipt_eval_normalize(batch_u8))
 
     def apply_yuv(self, y: torch.Tensor, cb: torch.Tensor,
                   cr: torch.Tensor) -> torch.Tensor:
@@ -167,42 +184,78 @@ class Encoder:
                 *pack, plain=self.plain_unpack))
 
     def _encode_planes(self, y, cb, cr) -> torch.Tensor:
-        return self.model(ycc_to_input(y, cb, cr, self.model.input_dtype,
-                                       plain=self.plain_unpack))
+        return self._forward(ycc_to_input(y, cb, cr, self.model.input_dtype,
+                                          plain=self.plain_unpack))
+
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.features is None:
+            return self.model(x)
+        return self.model.asset_dict(x)[self.features]
+
+
+# HIPT feature variant -> the asset_dict entry the encoder returns
+# (reference: forward_asset_dict, hipt_4k.py:79-118); cls4k is the forward
+HIPT_FEATURES = {"cls4k": None, "mean256": "features_mean256",
+                 "concat": "features_mean256_cls4k"}
+NOT_PORTED_ENCODERS = ("resnet50", "resnet18", "levit_128s", "levit_256")
 
 
 def build_encoder(cfg: EncoderConfig, *, device, model: nn.Module = None,
                   state_dict=None, seed: int = 0) -> Encoder:
-    """HIPT_4K encoder (cls4k features) on ``device``.
+    """The encoder ``cfg.model_type`` names, on ``device``:
 
-    ``model``: a prebuilt models.hipt.HIPT4K (tests pass narrow ones, and
-    the per-op kernel configuration enters here); otherwise the full-width
-    vit_small + vit4k_xs at ``cfg.dtype`` with every block as the fused
-    block kernel, as the JAX package builds it on its accelerator, with
-    seeded random weights unless ``state_dict`` or the DINO checkpoints in
-    ``cfg`` (vit256_ckpt, vit4k_ckpt) are given."""
+    - HIPT_4K: 4096 px regions -> ``cfg.hipt_features``: cls4k (the ViT-4K
+      CLS, 192), mean256 (the mean of the 256 ViT-256 CLS, 384) or concat
+      (both, 576);
+    - vit256: ViT-256 alone on 256 px patches -> its CLS (384).
+
+    ``model``: a prebuilt models.hipt.HIPT4K or models.vit.VisionTransformer
+    (tests pass narrow ones, and the per-op kernel configuration enters
+    here); otherwise the full-width model at ``cfg.dtype`` with every block
+    as the fused block kernel, as the JAX package builds it on its
+    accelerator, with seeded random weights unless ``state_dict`` or the
+    DINO checkpoints in ``cfg`` (vit256_ckpt, and vit4k_ckpt for HIPT_4K)
+    are given. ResNet and LeViT are not ported yet (ROADMAP §A.11)."""
     from hipt_abmil_atec23_tpu_torch.models.convert import (
-        load_dino_, load_torch_state_dict)
+        load_dino_, load_torch_state_dict, load_vit_)
+    from hipt_abmil_atec23_tpu_torch.models.vit import vit_small
     device = resolve_device(device)
-    if cfg.model_type not in ("HIPT_4K", "hipt_4k"):
+    dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+    gen = torch.Generator().manual_seed(seed)
+    if cfg.model_type in ("HIPT_4K", "hipt_4k"):
+        if cfg.hipt_features not in HIPT_FEATURES:
+            raise ValueError(f"hipt_features={cfg.hipt_features!r}: one of "
+                             f"{sorted(HIPT_FEATURES)}")
+        if model is None:
+            model = make_hipt_encoder(dtype, use_fused_block=True,
+                                      generator=gen)
+            if state_dict is None and cfg.vit256_ckpt and cfg.vit4k_ckpt:
+                load_dino_(model, load_torch_state_dict(cfg.vit256_ckpt),
+                           load_torch_state_dict(cfg.vit4k_ckpt))
+        features = HIPT_FEATURES[cfg.hipt_features]
+        input_size = 4096
+        feat_dim = {"cls4k": model.feat_dim,
+                    "mean256": model.vit256.feat_dim,
+                    "concat": model.vit256.feat_dim + model.feat_dim
+                    }[cfg.hipt_features]
+    elif cfg.model_type == "vit256":
+        if model is None:
+            model = vit_small(dtype, use_fused_block=True, generator=gen)
+            if state_dict is None and cfg.vit256_ckpt:
+                load_vit_(model, load_torch_state_dict(cfg.vit256_ckpt))
+        features, input_size, feat_dim = None, 256, model.feat_dim
+    elif cfg.model_type in NOT_PORTED_ENCODERS:
         raise NotImplementedError(
-            f"encoder {cfg.model_type!r}: only HIPT_4K is ported")
-    if cfg.hipt_features != "cls4k":
-        raise NotImplementedError(
-            f"hipt_features={cfg.hipt_features!r}: only cls4k is ported")
-    if model is None:
-        dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
-        model = make_hipt_encoder(
-            dtype, use_fused_block=True,
-            generator=torch.Generator().manual_seed(seed))
-        if state_dict is None and cfg.vit256_ckpt and cfg.vit4k_ckpt:
-            load_dino_(model, load_torch_state_dict(cfg.vit256_ckpt),
-                       load_torch_state_dict(cfg.vit4k_ckpt))
+            f"encoder {cfg.model_type!r} is not ported yet (ROADMAP §A.11); "
+            f"the port has HIPT_4K and vit256")
+    else:
+        raise ValueError(f"unknown encoder {cfg.model_type!r}")
     if state_dict is not None:
         model.load_state_dict(state_dict)
     model = model.to(device).eval()
-    return Encoder(model=model, batch_size=cfg.batch_size, input_size=4096,
-                   feat_dim=model.feat_dim, device=device)
+    return Encoder(model=model, batch_size=cfg.batch_size,
+                   input_size=input_size, feat_dim=feat_dim, device=device,
+                   features=features)
 
 
 def _pad_to(batch: np.ndarray, k: int, bs: int) -> np.ndarray:
@@ -214,15 +267,21 @@ def _pad_to(batch: np.ndarray, k: int, bs: int) -> np.ndarray:
 
 
 def _decode_batch(slide, chunk, *, patch_level, size, bs, n_io_threads,
-                  use_yuv=None, dct_ctx=None):
+                  use_yuv=None, dct_ctx=None,
+                  transform: Optional[Callable] = None,
+                  target_patch_size: int = 0):
     """Read one batch of regions, tail-padded to ``bs``. ``dct_ctx`` =
     (qt, caps) tries the sparse-coefficient pack first; any flagged region
     drops the whole chunk to the pixel reads below, never a mixed or
     truncated payload. Then the raw planes when ``use_yuv`` is the slide's
     chroma layout (sh, sv), RGB otherwise or when the plane read refuses
-    these coords (odd origins)."""
+    these coords (odd origins). A resize to ``target_patch_size`` (cv2
+    INTER_AREA, reference dataset_h5.py:147-152) and then the host
+    ``transform`` apply to RGB only, so either one skips the plane and DCT
+    reads (encode_stream gates those rungs off for them already)."""
     k = len(chunk)
-    if dct_ctx is not None:
+    pixels_only = transform is not None or bool(target_patch_size)
+    if dct_ctx is not None and not pixels_only:
         qt, caps = dct_ctx
         try:
             r = slide.read_regions_dct(chunk, patch_level, (size, size),
@@ -247,7 +306,7 @@ def _decode_batch(slide, chunk, *, patch_level, size, bs, n_io_threads,
                                 _pad_to(r.off, k, bs))
         except (IOError, AttributeError):
             pass  # unreadable through the coefficient path — pixels below
-    if use_yuv:
+    if use_yuv and not pixels_only:
         try:
             if hasattr(slide, "read_regions_planes"):
                 yp, cb, cr = slide.read_regions_planes(
@@ -263,6 +322,13 @@ def _decode_batch(slide, chunk, *, patch_level, size, bs, n_io_threads,
             pass  # odd-aligned coords etc. — the RGB read below
     batch = slide.read_regions(chunk, patch_level, (size, size),
                                n_threads=n_io_threads or k)
+    if target_patch_size and target_patch_size != size:
+        import cv2
+        batch = np.stack([
+            cv2.resize(p, (target_patch_size, target_patch_size),
+                       interpolation=cv2.INTER_AREA) for p in batch])
+    if transform is not None:
+        batch = transform(batch)
     return _pad_to(batch, k, bs)
 
 
@@ -422,9 +488,14 @@ def _kind(buf) -> str:
 
 
 def encode_stream(jobs, encoder: Encoder, *, patch_level: int = 0,
-                  region_size: Optional[int] = None, n_io_threads: int = 0,
-                  prefetch: int = 3, stats: Optional[dict] = None,
-                  adaptive_rungs: bool = True):
+                  region_size: Optional[int] = None,
+                  transform: Optional[Callable] = None,
+                  target_patch_size: int = 0, n_io_threads: int = 0,
+                  prefetch: int = 3, stage: bool = False,
+                  stage_budget_bytes: int = 6 << 30,
+                  stats: Optional[dict] = None, adaptive_rungs: bool = True,
+                  wire_mbps_hint: Optional[float] = None,
+                  pace_put_mbps: Optional[float] = None):
     """Encode a sequence of slides through one continuous pipeline.
 
     ``jobs``: (slide_id, slide, coords) triples. Yields (slide_id,
@@ -439,16 +510,42 @@ def encode_stream(jobs, encoder: Encoder, *, patch_level: int = 0,
     i+1's transfer overlaps batch i's compute. On a CPU encoder the same
     loop runs without pinning or streams.
 
+    ``stage``: every batch is decoded and copied to the device first, up to
+    ``stage_budget_bytes`` of batch bytes per flush (at least one batch);
+    each flush then dispatches its computes back to back, makes one D2H of
+    their concatenated features and yields what it completed. The staged
+    device buffers are released as the flush queues their computes.
+
+    ``transform`` (uint8 batch -> uint8 batch, ops/augment.py) and
+    ``target_patch_size`` (a resize before the encoder; equal to the
+    region size it is no resize) run on the decode worker on RGB, so
+    either one keeps every batch on the RGB rung.
+
     ``adaptive_rungs``: pick each batch's rung with ``select_rung`` at the
-    measured wire rate (an EWMA of the H2D copies timed with CUDA events)
-    and the stream's EWMA-calibrated host and device tables; until a wire
-    estimate exists, and always on a CPU encoder (no copy to time), the
-    byte-lightest feasible rung is used. ``stats`` (a dict) receives
-    ``rung_decisions`` ([batch, rung, MB/s] on each change),
-    ``regions_{dct,yuv,rgb}``, ``h2d_bytes``, ``dct_caps``, the live
-    ``rung_calibration`` tables and ``wire_mbps_final``.
+    measured wire rate and the stream's EWMA-calibrated host and device
+    tables. The wire rate starts at ``wire_mbps_hint`` and then follows an
+    EWMA of the H2D copies timed with CUDA events; until an estimate
+    exists, and on an unpaced CPU encoder (no copy to time), the
+    byte-lightest feasible rung is used.
+
+    ``pace_put_mbps``: a measurement shim that throttles the H2D to this
+    rate (MB/s), to reproduce a slow link on a fast one. A batch is handed
+    to compute only once its byte budget at that rate has elapsed since its
+    copy was issued (the host waits for the copy, then sleeps the rest),
+    and that paced time, not the copy's, is the wire sample, so the EWMA
+    and the selector see the throttled rate as they would a slow wire; on
+    a CPU encoder the paced sample is taken too. None (the default) leaves
+    the stream unthrottled; never set in production.
+
+    ``stats`` (a dict) receives ``rung_decisions`` ([batch, rung, MB/s] on
+    each change), ``regions_{dct,yuv,rgb}``, ``h2d_bytes``, ``dct_caps``,
+    the live ``rung_calibration`` tables, every ``wire_mbps_samples``,
+    ``wire_mbps_final`` and, staged, ``stage_flushes``.
     """
     size = region_size or encoder.input_size
+    if target_patch_size == size:
+        target_patch_size = 0  # no resize, so the plane rungs stay open
+    pixels_only = transform is not None or bool(target_patch_size)
     bs = encoder.batch_size
     dev = encoder.device
     cuda = dev.type == "cuda"
@@ -468,9 +565,11 @@ def encode_stream(jobs, encoder: Encoder, *, patch_level: int = 0,
 
     items = []
     for ji, (sid, slide, coords) in enumerate(jobs):
-        use_yuv = _plane_layout(slide, patch_level) if size % 2 == 0 else None
+        use_yuv = (_plane_layout(slide, patch_level)
+                   if size % 2 == 0 and not pixels_only else None)
         dct_ctx = None
-        if encoder.dct_rung and size % 16 == 0 and len(coords) > 0:
+        if (encoder.dct_rung and not pixels_only and size % 16 == 0
+                and len(coords) > 0):
             ds = slide.level_downsamples[patch_level]
             lvl = np.stack([(np.asarray(coords)[:, 0] / ds[0]),
                             (np.asarray(coords)[:, 1] / ds[1])],
@@ -494,9 +593,10 @@ def encode_stream(jobs, encoder: Encoder, *, patch_level: int = 0,
             yield sid, np.zeros((0, encoder.feat_dim), np.float32)
         return
 
-    # live wire-rate estimate (MB/s) and the selector's stage-cost tables,
-    # EWMA-calibrated in place from this stream's own measurements
-    link = {"mbps": None, "rung": None, "batch": 0,
+    # live wire-rate estimate (MB/s), seeded by the caller's hint, and the
+    # selector's stage-cost tables, EWMA-calibrated in place from this
+    # stream's own measurements
+    link = {"mbps": wire_mbps_hint, "rung": None, "batch": 0,
             "host_ms_mpx": dict(RUNG_HOST_MS_PER_MPX),
             "dev_ms_mpx": dict(RUNG_DEV_MS_PER_MPX)}
     if stats is not None:
@@ -531,7 +631,8 @@ def encode_stream(jobs, encoder: Encoder, *, patch_level: int = 0,
         td0 = time.perf_counter()
         buf = _decode_batch(slide, chunk, patch_level=patch_level, size=size,
                             bs=bs, n_io_threads=n_io_threads, use_yuv=use_yuv,
-                            dct_ctx=dct_ctx)
+                            dct_ctx=dct_ctx, transform=transform,
+                            target_patch_size=target_patch_size)
         # host-decode calibration, billed to the rung the batch actually
         # rode (a cap-overflow fallback bills the pixels it shipped)
         kind = _kind(buf)
@@ -557,19 +658,32 @@ def encode_stream(jobs, encoder: Encoder, *, patch_level: int = 0,
         return torch.cuda.Event(enable_timing=True)
 
     def to_device(host):
-        """(device tensors, (start, end, bytes) of the timed copy)."""
-        if not cuda:
-            return host, None
-        compute = torch.cuda.current_stream(dev)
-        t0, t1 = timer(), timer()
-        with torch.cuda.stream(copy_stream):
-            t0.record(copy_stream)
-            on_dev = tuple(t.to(dev, non_blocking=True) for t in host)
-            t1.record(copy_stream)
-        compute.wait_event(t1)
-        for t in on_dev:  # allocated on the copy stream, read on compute
-            t.record_stream(compute)
-        return on_dev, (t0, t1, sum(t.nbytes for t in host))
+        """(device tensors, wire sample): (start, end, bytes) CUDA events
+        around the copy, (seconds, bytes) of a paced copy, or None on an
+        unpaced CPU encoder."""
+        nbytes = sum(t.nbytes for t in host)
+        issued = time.perf_counter()
+        on_dev, wire = host, None
+        if cuda:
+            compute = torch.cuda.current_stream(dev)
+            t0, t1 = timer(), timer()
+            with torch.cuda.stream(copy_stream):
+                t0.record(copy_stream)
+                on_dev = tuple(t.to(dev, non_blocking=True) for t in host)
+                t1.record(copy_stream)
+            compute.wait_event(t1)
+            for t in on_dev:  # allocated on the copy stream, read on compute
+                t.record_stream(compute)
+            wire = (t0, t1, nbytes)
+        if pace_put_mbps:
+            if cuda:
+                t1.synchronize()
+            deficit = nbytes / 1e6 / pace_put_mbps - (time.perf_counter()
+                                                      - issued)
+            if deficit > 0:
+                time.sleep(deficit)
+            wire = (time.perf_counter() - issued, nbytes)
+        return on_dev, wire
 
     def run(kind, bufs):
         """Dispatch the encoder; returns (out, device-time handle)."""
@@ -586,8 +700,8 @@ def encode_stream(jobs, encoder: Encoder, *, patch_level: int = 0,
         return out, (t0, t1)
 
     def to_host(out):
-        # D2H queued right behind this batch's compute, into pinned memory,
-        # so collecting it later never waits on the batch queued after it
+        # D2H queued right behind the compute, into pinned memory, so
+        # collecting it later never waits on the batch queued after it
         if not cuda:
             return out, None
         host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
@@ -596,48 +710,105 @@ def encode_stream(jobs, encoder: Encoder, *, patch_level: int = 0,
         done.record(torch.cuda.current_stream(dev))
         return host, done
 
-    def collect(pend):
-        ji, k, kind, host, done, dev_t, wire = pend
-        if done is not None:
-            done.synchronize()
-        feats[ji][offs[ji]:offs[ji] + k] = host[:k].float().numpy()
-        offs[ji] += k
-        remaining[ji] -= 1
-        # the batch is done, so its events have fired: calibrate the
-        # device table and the wire rate from them without another sync
+    def calibrate(kind, dev_t, wire):
+        """Feed a completed batch's device time and wire sample to the
+        EWMAs (its events have fired, so this never syncs)."""
         dev_s = dev_t if not cuda else dev_t[0].elapsed_time(dev_t[1]) / 1e3
         _ewma(link["dev_ms_mpx"], kind,
               dev_s * 1e3 / (bs * size * size / 1e6))
         if wire is not None:
-            ms = wire[0].elapsed_time(wire[1])
-            inst = wire[2] / 1e6 / max(ms / 1e3, 1e-9)
+            secs = (wire[0] if len(wire) == 2
+                    else wire[0].elapsed_time(wire[1]) / 1e3)
+            inst = wire[-1] / 1e6 / max(secs, 1e-9)
             link["mbps"] = (inst if link["mbps"] is None
                             else 0.7 * link["mbps"] + 0.3 * inst)
+            if stats is not None:
+                stats.setdefault("wire_mbps_samples", []).append(inst)
+
+    def store(ji, k, rows):
+        feats[ji][offs[ji]:offs[ji] + k] = rows[:k]
+        offs[ji] += k
+        remaining[ji] -= 1
+
+    def collect(pend):
+        ji, k, kind, host, done, dev_t, wire = pend
+        if done is not None:
+            done.synchronize()
+        store(ji, k, host.float().numpy())
+        calibrate(kind, dev_t, wire)
+
+    def flush(staged):
+        """Dispatch every staged batch's compute back to back, then one
+        D2H of their concatenated features; each staged device batch is
+        dropped as its compute is queued (record_stream keeps its memory
+        until that compute has run)."""
+        outs = []
+        for rec in staged:
+            outs.append(run(rec[2], rec[3]))
+            rec[3] = None
+        host, done = to_host(torch.cat([o for o, _ in outs]))
+        if done is not None:
+            done.synchronize()
+        flat = host.float().numpy()
+        for i, ((ji, k, kind, _, wire), (_, dev_t)) in enumerate(
+                zip(staged, outs)):
+            store(ji, k, flat[i * bs:(i + 1) * bs])
+            calibrate(kind, dev_t, wire)
+        staged.clear()
+        if stats is not None:
+            stats["stage_flushes"] = stats.get("stage_flushes", 0) + 1
 
     window = max(1, prefetch)
     next_yield = 0
-    pending = None
+
+    def drain():
+        nonlocal next_yield
+        ready, next_yield = _drain_in_order(jobs, feats, remaining,
+                                            next_yield, encoder.feat_dim)
+        return ready
+
     # ONE decode worker: read_regions parallelises internally; the window
     # is prefetch depth, not decode concurrency
     ex = ThreadPoolExecutor(max_workers=1)
     futures = [ex.submit(read_batch, it) for it in items[:window]]
+
+    def next_batch(ci):
+        kind, host = futures[ci].result()
+        futures[ci] = None  # the pinned batch is freed with its last user
+        if ci + window < len(items):
+            futures.append(ex.submit(read_batch, items[ci + window]))
+        return kind, host
+
     try:
-        for ci, (ji, _, chunk, _, _) in enumerate(items):
-            kind, host = futures[ci].result()
-            if ci + window < len(items):
-                futures.append(ex.submit(read_batch, items[ci + window]))
-            bufs, wire = to_device(host)
-            out, dev_t = run(kind, bufs)
-            if pending is not None:
-                collect(pending)
-                ready, next_yield = _drain_in_order(
-                    jobs, feats, remaining, next_yield, encoder.feat_dim)
-                yield from ready
-            pending = (ji, len(chunk), kind, *to_host(out), dev_t, wire)
-        collect(pending)
-        ready, next_yield = _drain_in_order(jobs, feats, remaining,
-                                            next_yield, encoder.feat_dim)
-        yield from ready
+        if stage:
+            staged, held = [], 0
+            for ci, (ji, _, chunk, _, _) in enumerate(items):
+                kind, host = next_batch(ci)
+                bufs, wire = to_device(host)
+                held += sum(t.nbytes for t in host)
+                staged.append([ji, len(chunk), kind, bufs, wire])
+                del host, bufs
+                if held >= stage_budget_bytes:
+                    flush(staged)
+                    held = 0
+                    yield from drain()
+            if staged:
+                flush(staged)
+            yield from drain()
+        else:
+            pending = None
+            for ci, (ji, _, chunk, _, _) in enumerate(items):
+                kind, host = next_batch(ci)
+                bufs, wire = to_device(host)
+                del host
+                out, dev_t = run(kind, bufs)
+                del bufs
+                if pending is not None:
+                    collect(pending)
+                    yield from drain()
+                pending = (ji, len(chunk), kind, *to_host(out), dev_t, wire)
+            collect(pending)
+            yield from drain()
         if stats is not None:
             stats["wire_mbps_final"] = link["mbps"]
     finally:
@@ -650,11 +821,177 @@ def encode_stream(jobs, encoder: Encoder, *, patch_level: int = 0,
 
 def encode_slide(slide, coords: np.ndarray, encoder: Encoder, *,
                  patch_level: int = 0, region_size: Optional[int] = None,
-                 n_io_threads: int = 0, prefetch: int = 3) -> np.ndarray:
+                 transform: Optional[Callable] = None,
+                 target_patch_size: int = 0, n_io_threads: int = 0,
+                 prefetch: int = 3) -> np.ndarray:
     """Encode all coords of one slide -> [N, D] features (a one-slide
     encode_stream)."""
     out = dict(encode_stream([("_solo", slide, coords)], encoder,
                              patch_level=patch_level,
-                             region_size=region_size,
+                             region_size=region_size, transform=transform,
+                             target_patch_size=target_patch_size,
                              n_io_threads=n_io_threads, prefetch=prefetch))
     return out["_solo"]
+
+
+def encode_and_store(slide_path: str, coords_h5: str, encoder: Encoder,
+                     store, slide_id: str, *, formats=("h5", "pt"),
+                     skip_existing: bool = True,
+                     transform: Optional[Callable] = None,
+                     target_patch_size: int = 0) -> Optional[str]:
+    """One slide's encode stage with idempotent resume (the reference skips
+    slides whose pt exists, extract_features_fp.py:231-238): coords and
+    geometry from the coords h5 (slideio/patching.py), features into
+    ``store`` (data/bags.FeatureBagStore). Returns the written path, or
+    None when the slide was already stored."""
+    from hipt_abmil_atec23_tpu_torch.slideio.patching import load_coords_h5
+    from hipt_abmil_atec23_tpu_torch.slideio.reader import open_slide
+
+    if skip_existing and store.exists(slide_id):
+        return None
+    coords, attrs = load_coords_h5(coords_h5)
+    slide = open_slide(slide_path)
+    try:
+        feats = encode_slide(slide, coords, encoder,
+                             patch_level=int(attrs.get("patch_level", 0)),
+                             region_size=int(attrs.get("patch_size",
+                                                       encoder.input_size)),
+                             transform=transform,
+                             target_patch_size=target_patch_size)
+    finally:
+        slide.close()
+    store.save(slide_id, feats, coords=coords, formats=formats)
+    return (store.pt_path(slide_id) if "pt" in formats
+            else store.h5_path(slide_id))
+
+
+ENCODE_GROUP = 8  # slides per stream, and so the open slide handles bound
+
+
+def encode_many(jobs, encoder: Encoder, store, *, formats=("h5", "pt"),
+                skip_existing: bool = True,
+                transform: Optional[Callable] = None,
+                target_patch_size: int = 0, verbose: bool = True,
+                stage: bool = False):
+    """The slide-level pipelined encode stage. ``jobs``: (slide_path,
+    coords_h5, slide_id) triples.
+
+    Slides stream in groups of ``ENCODE_GROUP`` through encode_stream
+    (consecutive slides of one patch level and size share a stream), so
+    the device drains once per group, not per slide. While a group streams,
+    a thread opens the next group's slides and coords, and a writer thread
+    persists each finished slide's bag (h5 + pt). Returns ``(done,
+    failed)``: the slide ids encoded, and (slide_id, exception) for each
+    slide whose open or coords load failed; such a slide never stops the
+    stage. On any exception every open handle is closed (the prefetched
+    group's too) and every queued write is flushed, so each slide reported
+    done is on disk; the first write error is raised after the loop."""
+    from hipt_abmil_atec23_tpu_torch.slideio.patching import load_coords_h5
+    from hipt_abmil_atec23_tpu_torch.slideio.reader import open_slide
+
+    todo = []
+    for path, h5, sid in jobs:
+        if skip_existing and store.exists(sid):
+            if verbose:
+                print(f"[encode] {sid}: skipped (exists)")
+            continue
+        todo.append((path, h5, sid))
+    if not todo:
+        return [], []
+
+    def _open_group(chunk):
+        # per-slide isolation: one unreadable slide or h5 neither leaks the
+        # group's open handles nor aborts the stage
+        out = []
+        for path, h5, sid in chunk:
+            try:
+                coords, attrs = load_coords_h5(h5)
+                out.append((sid, open_slide(path), coords, attrs))
+            except Exception as e:
+                out.append((sid, None, None, e))
+        return out
+
+    write_q: "queue.Queue" = queue.Queue(maxsize=4)
+    write_err = []
+
+    def _writer():
+        while True:
+            item = write_q.get()
+            if item is None:
+                return
+            sid, feats, coords = item
+            try:
+                store.save(sid, feats, coords=coords, formats=formats)
+            except Exception as e:  # raised after the loop
+                write_err.append((sid, e))
+
+    wt = threading.Thread(target=_writer, daemon=True)
+    wt.start()
+    done, failed = [], []
+    groups = [todo[i:i + ENCODE_GROUP]
+              for i in range(0, len(todo), ENCODE_GROUP)]
+    open_handles = []   # every open slide not yet closed
+
+    def _close(slide):
+        try:
+            slide.close()
+        except Exception:
+            pass
+        if slide in open_handles:
+            open_handles.remove(slide)
+
+    openex = ThreadPoolExecutor(max_workers=1)
+    nxt = openex.submit(_open_group, groups[0])
+    try:
+        for gi in range(len(groups)):
+            opened = nxt.result()
+            open_handles.extend(s for _, s, _, _ in opened if s is not None)
+            nxt = (openex.submit(_open_group, groups[gi + 1])
+                   if gi + 1 < len(groups) else None)
+            # consecutive same-geometry slides share one stream (patch
+            # level and size are per-slide h5 attrs)
+            runs = []
+            for sid, slide, coords, attrs in opened:
+                if slide is None:
+                    failed.append((sid, attrs))
+                    if verbose:
+                        print(f"[encode] {sid}: FAILED to open ({attrs!r})")
+                    continue
+                geo = (int(attrs.get("patch_level", 0)),
+                       int(attrs.get("patch_size", encoder.input_size)))
+                if runs and runs[-1][0] == geo:
+                    runs[-1][1].append((sid, slide, coords))
+                else:
+                    runs.append((geo, [(sid, slide, coords)]))
+            for (lvl, size), sjobs in runs:
+                coords_by_sid = {sid: c for sid, _, c in sjobs}
+                try:
+                    for sid, feats in encode_stream(
+                            sjobs, encoder, patch_level=lvl,
+                            region_size=size, transform=transform,
+                            target_patch_size=target_patch_size,
+                            stage=stage):
+                        write_q.put((sid, feats, coords_by_sid[sid]))
+                        done.append(sid)
+                        if verbose:
+                            print(f"[encode] {sid}: done "
+                                  f"({len(coords_by_sid[sid])} patches)")
+                finally:
+                    for _, slide, _ in sjobs:
+                        _close(slide)
+    finally:
+        if nxt is not None:
+            try:
+                open_handles.extend(
+                    s for _, s, _, _ in nxt.result() if s is not None)
+            except Exception:
+                pass
+        openex.shutdown(wait=True)
+        for slide in list(open_handles):
+            _close(slide)
+        write_q.put(None)
+        wt.join()
+    if write_err:
+        sid, e = write_err[0]
+        raise IOError(f"failed writing features for {sid}: {e}")
+    return done, failed

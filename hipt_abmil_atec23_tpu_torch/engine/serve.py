@@ -2,13 +2,13 @@
 CLAM_SB, on the port.
 
 Counterpart of hipt_abmil_atec23_tpu/engine/serve.py ``serve_once`` /
-``serve_forever``. ServeConfig, discover and the journal helpers are the
-port's own copies of the JAX package's, as are the slide readers,
-segmentation, coordinates and the blockmap writer it calls (slideio/,
-explain/heatmaps.py), so both packages keep one journal format and one set
-of output schemas: a ``serve_journal.csv``, per-slide ``results/<id>.json``,
-``results/<id>_blockmap.h5`` (reference create_heatmaps.py:379-381) and an
-appended ``predictions.jsonl``.
+``serve_forever``. ServeConfig, discover, write_config and the journal
+helpers are the port's own copies of the JAX package's, as are the slide
+readers, segmentation, coordinates and the blockmap writer it calls
+(slideio/, explain/heatmaps.py), so both packages keep one journal format
+and one set of output schemas: a ``serve_journal.csv``, per-slide
+``results/<id>.json``, ``results/<id>_blockmap.h5`` (reference
+create_heatmaps.py:379-381) and an appended ``predictions.jsonl``.
 
 Slides that arrive together ride one encode_stream pipeline; a mid-stream
 failure falls back to one stream per unfinished slide, so only the slide
@@ -17,6 +17,7 @@ that fails is journaled 'error'.
 from __future__ import annotations
 
 import csv
+import dataclasses
 import json
 import os
 import time
@@ -149,8 +150,8 @@ def _ensure_state(cfg: ServeConfig, state: ServeState) -> None:
         if not cfg.ckpt_path.endswith(".pt"):
             raise NotImplementedError(
                 f"{cfg.ckpt_path!r}: the port loads reference-layout torch "
-                ".pt CLAM checkpoints; flax .msgpack checkpoints are not "
-                "ported yet")
+                ".pt CLAM checkpoints; flax checkpoints are not ported yet "
+                "(ROADMAP §A.7)")
         model = build_mil_model(cfg.model.model_type,
                                 size_arg=cfg.model.model_size,
                                 n_classes=cfg.n_classes, gate=cfg.model.gate)
@@ -335,3 +336,12 @@ def serve_forever(cfg: ServeConfig, *, device, stop=None,
             return served
         if stop is None:
             time.sleep(cfg.poll_s)
+
+
+def write_config(cfg: ServeConfig) -> None:
+    """Dump the effective serve config next to the journal, as the JAX
+    package's write_config does (reference: the per-run config dump,
+    create_heatmaps.py:95-101)."""
+    os.makedirs(cfg.out_dir, exist_ok=True)
+    with open(os.path.join(cfg.out_dir, "serve_config.json"), "w") as f:
+        json.dump(dataclasses.asdict(cfg), f, indent=2, default=str)

@@ -144,15 +144,22 @@ def hipt_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def load_vit_(vit, sd: Mapping[str, torch.Tensor]):
+    """Load a DINO ViT checkpoint (load_torch_state_dict output) into a
+    models.vit ViT. Keys the ViT does not hold (a DINO head) are ignored;
+    a missing ViT key raises."""
+    missing, _ = vit.load_state_dict(dict(sd), strict=False)
+    if missing:
+        raise KeyError(f"checkpoint lacks {missing}")
+    return vit
+
+
 def load_dino_(model, sd256: Mapping[str, torch.Tensor],
                sd4k: Mapping[str, torch.Tensor]):
-    """Load DINO ViT-256 / ViT-4K checkpoints (load_torch_state_dict
-    output) into a models.hipt.HIPT4K. Keys the ViTs do not hold (a DINO
-    head) are ignored; a missing ViT key raises."""
-    for vit, sd in ((model.vit256, sd256), (model.vit4k, sd4k)):
-        missing, _ = vit.load_state_dict(dict(sd), strict=False)
-        if missing:
-            raise KeyError(f"checkpoint lacks {missing}")
+    """Load DINO ViT-256 / ViT-4K checkpoints into a models.hipt.HIPT4K,
+    each as ``load_vit_`` does."""
+    load_vit_(model.vit256, sd256)
+    load_vit_(model.vit4k, sd4k)
     return model
 
 

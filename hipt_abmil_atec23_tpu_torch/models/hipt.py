@@ -1,15 +1,15 @@
 """HIPT_4K: hierarchical ViT-256 -> ViT-4K region encoder.
 
 Counterpart of hipt_abmil_atec23_tpu/models/hipt.py (``__call__``, the
-cls4k features): every 256 x 256 tile of a region is one image of a
-ViT-256 batch, the CLS grid reshapes to [R, gh, gw, 384] on the device, and
-ViT-4K turns it into one 192-d feature per region (reference:
-HIPT_4K/hipt_4k.py:48-76, without its two-GPU host bounce).
+cls4k features, and ``asset_dict``): every 256 x 256 tile of a region is
+one image of a ViT-256 batch, the CLS grid reshapes to [R, gh, gw, 384] on
+the device, and ViT-4K turns it into one 192-d feature per region
+(reference: HIPT_4K/hipt_4k.py:48-76, without its two-GPU host bounce).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 import torch.nn as nn
@@ -44,14 +44,33 @@ class HIPT4K(nn.Module):
         not cast again."""
         return self.vit256.cfg.dtype
 
-    def forward(self, regions: torch.Tensor) -> torch.Tensor:
+    def _tile_cls(self, regions: torch.Tensor) -> torch.Tensor:
+        """ViT-256 CLS of every 256 x 256 tile: [R, gh, gw, 384] f32."""
         r, h, w, c = regions.shape
         gh, gw = h // 256, w // 256
         # cast first: the tile gather below then moves compute-dtype bytes
         x = regions.to(self.vit256.cfg.dtype)
         tiles = x.reshape(r, gh, 256, gw, 256, c).permute(0, 1, 3, 2, 4, 5)
         cls256 = self.vit256(tiles.reshape(r * gh * gw, 256, 256, c))
-        return self.vit4k(cls256.reshape(r, gh, gw, -1))
+        return cls256.reshape(r, gh, gw, -1)
+
+    def forward(self, regions: torch.Tensor) -> torch.Tensor:
+        return self.vit4k(self._tile_cls(regions))
+
+    def asset_dict(self, regions: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """The reference's forward_asset_dict (hipt_4k.py:79-118), f32:
+        ``features_cls256`` [R, gh*gw, 384], ``features_mean256`` [R, 384]
+        (the mean over a region's tiles), ``features_cls4k`` [R, 192] and
+        ``features_mean256_cls4k`` [R, 576]. The CLS grid stays on the
+        device."""
+        grid = self._tile_cls(regions)
+        cls256 = grid.reshape(grid.shape[0], -1, grid.shape[-1])
+        mean256 = cls256.float().mean(1)
+        cls4k = self.vit4k(grid)
+        return {"features_cls256": cls256,
+                "features_mean256": mean256,
+                "features_cls4k": cls4k,
+                "features_mean256_cls4k": torch.cat([mean256, cls4k], -1)}
 
 
 def make_hipt_encoder(dtype: torch.dtype = torch.bfloat16,

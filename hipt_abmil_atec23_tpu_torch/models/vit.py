@@ -270,6 +270,16 @@ class VisionTransformer(_Encoder):
         self.pos_embed = nn.Parameter(torch.zeros(1, s * s + 1, cfg.embed_dim))
         self._init_blocks(cfg.embed_dim, cfg.depth, cfg)
 
+    @property
+    def feat_dim(self) -> int:
+        return self.cfg.embed_dim
+
+    @property
+    def input_dtype(self) -> torch.dtype:
+        """The dtype ``forward`` computes in; pixels given in it are not
+        cast again."""
+        return self.cfg.dtype
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
         dt = cfg.dtype
@@ -316,6 +326,22 @@ class VisionTransformer4K(_Encoder):
         tok = torch.cat([cls, x], dim=1)
         tok = tok + self._pe.get(self.pos_embed, gh, gw).to(dt).float()
         return self._run(tok)
+
+
+def vit_small(dtype: torch.dtype = torch.float32, *,
+              use_fused_block: bool = False,
+              cfg: ViTConfig = VIT_CONFIGS["vit_small"],
+              generator: Optional[torch.Generator] = None
+              ) -> VisionTransformer:
+    """ViT-256 alone (the vit256 encoder): ``cfg`` (vit_small by default)
+    at the compute dtype, each block the fused block kernel with
+    ``use_fused_block``; seeded DINO-scheme weights with a generator,
+    zeros otherwise."""
+    model = VisionTransformer(dataclasses.replace(
+        cfg, dtype=dtype, use_fused_block=use_fused_block))
+    if generator is not None:
+        init_dino_(model, generator)
+    return model
 
 
 def init_dino_(model: nn.Module, generator: torch.Generator) -> nn.Module:

@@ -1,2 +1,3 @@
 """Numerical ops of the port: DCT decode, fused ViT block and block stack,
-gated-attention pooling, YCbCr decode and bag masking."""
+gated-attention pooling, YCbCr decode, bag masking and the host transforms
+(augment)."""

@@ -1,2 +1,3 @@
 """Slide I/O of the port: the native reader binding, segmentation,
-coordinates, and synthetic slides."""
+coordinates, the tile stage, stitches, legacy helpers and synthetic
+slides."""

@@ -1,7 +1,8 @@
 """Patch-coordinate enumeration — vectorized.
 
-The port's own copy of hipt_abmil_atec23_tpu/slideio/patching.py (the
-enumeration; the coords-h5 writers stay in the JAX package).
+The port's own copy of hipt_abmil_atec23_tpu/slideio/patching.py: the
+enumeration and the coords-h5 writer and reader, in the same h5 layout, so
+a coords file written by either package loads in the other.
 
 The reference tests every grid candidate against the tissue contour with
 cv2.pointPolygonTest across a 4-worker fork pool (reference:
@@ -18,6 +19,7 @@ boundary-straddling candidates within ~1 seg-level pixel may differ.
 """
 from __future__ import annotations
 
+import os
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -135,3 +137,38 @@ def enumerate_coords(slide: BaseSlide, seg: SegmentationResult,
     if not parts:
         return np.zeros((0, 2), np.int64)
     return np.concatenate(parts, axis=0)
+
+
+def coords_attrs(slide: BaseSlide, cfg: TileConfig, name: str,
+                 save_path: str) -> Dict:
+    """Attribute dict matching the reference's coords-h5 schema
+    (WholeSlideImage.py:485-496)."""
+    lvl_dim = slide.level_dimensions[cfg.patch_level]
+    return {
+        "patch_size": cfg.patch_size,
+        "patch_level": cfg.patch_level,
+        "downsample": np.asarray(slide.level_downsamples[cfg.patch_level]),
+        "downsampled_level_dim": np.asarray(lvl_dim),
+        "level_dim": np.asarray(lvl_dim),
+        "name": name,
+        "save_path": save_path,
+    }
+
+
+def save_coords_h5(path: str, coords: np.ndarray, attrs: Dict) -> None:
+    """coords-h5 artifact (dataset 'coords' + attrs — reference:
+    wsi_utils.py:54-73 save_hdf5 schema)."""
+    import h5py
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with h5py.File(path, "w") as f:
+        d = f.create_dataset("coords", data=np.asarray(coords, np.int64),
+                             maxshape=(None, 2), chunks=True)
+        for k, v in attrs.items():
+            d.attrs[k] = v
+
+
+def load_coords_h5(path: str) -> Tuple[np.ndarray, Dict]:
+    import h5py
+    with h5py.File(path, "r") as f:
+        d = f["coords"]
+        return np.asarray(d), dict(d.attrs)

@@ -1,8 +1,8 @@
 """Tissue segmentation: HSV -> median blur -> threshold -> close -> contours.
 
-The port's own copy of hipt_abmil_atec23_tpu/slideio/seg.py (the
-segmentation the serving path runs; the pickle, overlay and external-contour
-helpers stay in the JAX package).
+The port's own copy of hipt_abmil_atec23_tpu/slideio/seg.py, including the
+segmentation pickle (``SegmentationResult.save`` / ``load``, readable by
+either package), the contour overlay and the external-contour loader.
 
 Behavior parity with the reference (reference:
 wsi_core/WholeSlideImage.py:111-203 segmentTissue/_filter_contours):
@@ -17,6 +17,7 @@ the reference parallelizes with mp.Pool happens vectorized in patching.py.
 """
 from __future__ import annotations
 
+import pickle
 from dataclasses import dataclass
 from typing import List, Optional
 
@@ -32,6 +33,20 @@ class SegmentationResult:
     holes: List[List[np.ndarray]]     # per-contour holes, level-0 coords
     seg_level: int
     mask: Optional[np.ndarray] = None  # binary tissue mask at seg_level
+
+    def save(self, path: str) -> None:
+        """Segmentation pickle (reference: saveSegmentation,
+        WholeSlideImage.py:92-102 — {'tissue': ..., 'holes': ...})."""
+        with open(path, "wb") as f:
+            pickle.dump({"tissue": self.contours, "holes": self.holes,
+                         "seg_level": self.seg_level}, f)
+
+    @classmethod
+    def load(cls, path: str) -> "SegmentationResult":
+        with open(path, "rb") as f:
+            d = pickle.load(f)
+        return cls(contours=d["tissue"], holes=d["holes"],
+                   seg_level=d.get("seg_level", 0))
 
 
 def segment_tissue(slide: BaseSlide, cfg: SegConfig,
@@ -103,3 +118,33 @@ def _filter_contours(contours, hierarchy, a_t: float, a_h: float,
         all_holes.append([contours[hi] for hi in kept
                           if cv2.contourArea(contours[hi]) > a_h])
     return fg, all_holes
+
+
+def draw_segmentation(slide: BaseSlide, seg: SegmentationResult,
+                      vis_level: Optional[int] = None,
+                      color=(0, 255, 0), hole_color=(0, 0, 255),
+                      line_thickness: int = 250) -> np.ndarray:
+    """Contour overlay image (reference: visWSI, WholeSlideImage.py:205-260)."""
+    import cv2
+    if vis_level is None:
+        vis_level = slide.get_best_level_for_downsample(64)
+    img = slide.read_level(vis_level).copy()
+    dx, dy = slide.level_downsamples[vis_level]
+    scale = np.array([1.0 / dx, 1.0 / dy])
+    thick = max(1, int(line_thickness / dx))
+    cts = [(c * scale).astype(np.int32) for c in seg.contours]
+    cv2.drawContours(img, cts, -1, color, thick, lineType=cv2.LINE_8)
+    for hs in seg.holes:
+        hts = [(h * scale).astype(np.int32) for h in hs]
+        cv2.drawContours(img, hts, -1, hole_color, thick, lineType=cv2.LINE_8)
+    return img
+
+
+def load_external_contours(path: str) -> SegmentationResult:
+    """Load externally-produced tissue contours from a .npy pickle (the
+    reference's DMMN-mask path, loadSegmentation WholeSlideImage.py:104-109):
+    an object array of contours in level-0 coordinates, no holes."""
+    contours = np.load(path, allow_pickle=True)
+    contours = [np.asarray(c, np.int32).reshape(-1, 1, 2) for c in contours]
+    return SegmentationResult(contours=contours,
+                              holes=[[] for _ in contours], seg_level=0)

@@ -1,7 +1,8 @@
 """The configuration dataclasses the port reads.
 
 The port's own copy of hipt_abmil_atec23_tpu/utils/config.py, cut to the
-classes tiling, encoding, serving, bag storage and full-bag training need.
+classes tiling, encoding, serving, bag storage and full-bag training need,
+and the segmentation presets.
 Field names and defaults are the JAX package's, so one config dictionary
 drives both packages.
 """
@@ -187,3 +188,31 @@ class ExperimentConfig:
     @classmethod
     def load(cls, path: str) -> "ExperimentConfig":
         return cls.from_dict(load_config_dict(path))
+
+
+# Named segmentation presets mirroring the reference's preset CSVs
+# (reference: presets/betterseg.csv, presets/bwh_biopsy.csv, ...).
+SEG_PRESETS: Dict[str, Dict[str, Any]] = {
+    "default": {},
+    "betterseg": {"sthresh": 15, "mthresh": 5, "close": 100, "use_otsu": True},
+    "bwh_biopsy": {"sthresh": 15, "mthresh": 11, "close": 2, "use_otsu": True},
+}
+
+
+def apply_seg_preset(cfg: SegConfig, preset: str) -> SegConfig:
+    """Apply a named preset, or load a reference-format preset CSV when
+    `preset` is a path (reference: presets/*.csv, create_patches_fp.py:303-315)."""
+    if preset in SEG_PRESETS:
+        return dataclasses.replace(cfg, **SEG_PRESETS[preset])
+    if preset.endswith(".csv"):
+        import pandas as pd
+        row = pd.read_csv(preset).iloc[0]
+        fields = {f.name for f in dataclasses.fields(SegConfig)}
+        overrides = {}
+        for k, v in row.items():
+            if k in fields and not pd.isna(v):
+                cur = getattr(cfg, k)
+                overrides[k] = type(cur)(v) if not isinstance(cur, tuple) else cur
+        return dataclasses.replace(cfg, **overrides)
+    raise KeyError(f"unknown preset {preset!r}; named: {sorted(SEG_PRESETS)} "
+                   f"or a preset CSV path")

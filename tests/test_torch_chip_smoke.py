@@ -3,9 +3,11 @@ faults: the tolerance it holds the attention kernels to must pass an output
 rounded as the flash kernel rounds and fail a kernel that drops a key tile
 or normalises twice; its fused_mlp check must pass an output rounded as the
 MLP kernel rounds and fail one that drops a hidden chunk or leaves a row
-tile unwritten."""
+tile unwritten; its pace window and its staged-against-overlapped check
+must pass the streams' own outputs and fail planted faults."""
 import functools
 
+import numpy as np
 import pytest
 import torch
 
@@ -246,3 +248,57 @@ def test_colour_check_rejects_planted_faults(fault, dtype):
     else:
         with pytest.raises(SystemExit):
             chip_smoke.colour_check(fault, got, want)
+
+
+@pytest.mark.parametrize("fault", [None, "unthrottled", "copy_rate",
+                                   "estimate_low", "no_estimate"])
+def test_paced_rate_check_rejects_planted_faults(fault):
+    """chip_smoke's pace window at 200 MB/s: a stream paced as the shim
+    paces it (estimate just under the pace, wall just over its bytes' time
+    at the pace) passes; a shim whose sleep was skipped (the wall a tenth
+    of that), an estimate read from the copy's own time (GB/s), one 30%
+    under the pace, or none at all fails."""
+    pace = chip_smoke.PACE_MBPS
+    stats = {"h2d_bytes": 400e6, "wire_mbps_final": 0.98 * pace}
+    wall = 1.02 * stats["h2d_bytes"] / 1e6 / pace
+    if fault == "unthrottled":
+        wall /= 10
+    elif fault == "copy_rate":
+        stats["wire_mbps_final"] = 21000.0
+    elif fault == "estimate_low":
+        stats["wire_mbps_final"] = 0.7 * pace
+    elif fault == "no_estimate":
+        stats["wire_mbps_final"] = None
+    if fault is None:
+        assert chip_smoke.paced_rate_check(stats, wall, pace) == 0.98 * pace
+    else:
+        with pytest.raises(SystemExit):
+            chip_smoke.paced_rate_check(stats, wall, pace)
+
+
+@pytest.mark.parametrize("fault", [None, "flushes_swapped", "row_off",
+                                   "slide_dropped", "order", "nan"])
+def test_staged_check_rejects_planted_faults(fault):
+    """chip_smoke's staged-against-overlapped comparison: the overlapped
+    features themselves pass; a flush whose rows land in the other flush's
+    place, one value off by 1e-4, a slide not yielded, slides yielded out
+    of job order, or a NaN fails."""
+    rng = np.random.default_rng(0)
+    want = {"a": rng.standard_normal((4, 192)).astype(np.float32),
+            "b": rng.standard_normal((4, 192)).astype(np.float32)}
+    got = {k: v.copy() for k, v in want.items()}
+    if fault == "flushes_swapped":
+        got["a"] = np.roll(got["a"], 2, axis=0)
+    elif fault == "row_off":
+        got["b"][3, 7] += 1e-4
+    elif fault == "slide_dropped":
+        del got["b"]
+    elif fault == "order":
+        got = {"b": got["b"], "a": got["a"]}
+    elif fault == "nan":
+        got["a"][0, 0] = np.nan
+    if fault is None:
+        assert chip_smoke.staged_check("plane", got, want) == 0.0
+    else:
+        with pytest.raises(SystemExit):
+            chip_smoke.staged_check("plane", got, want)

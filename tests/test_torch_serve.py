@@ -211,14 +211,16 @@ def test_serve_isolates_a_failing_slide(served, tmp_path, monkeypatch):
 
 def test_port_serve_path_imports_no_jax(served, tmp_path):
     """A fresh interpreter imports the port's serve, encode and jpegdct
-    modules and chip_smoke, runs the per-op kernel configuration (the
+    modules, its CLI and tile-stage modules (slideio/pipeline, stitch,
+    legacy, ops/augment) and chip_smoke, runs the per-op kernel
+    configuration (the
     flash_attention and fused_mlp ops) against the fused-block one on the
     same weights (f32, one region) and the whole-network op on its ViT-256
     blocks, runs the port's serve_once on the same slides
     (narrow random HIPT, the same checkpoint; the YCbCr slide rides the DCT
-    rung) and one encode_stream on the DCT rung, runs the instance-sharded
-    forward (plain and fused) and one epoch of the full-bag trainer over a
-    gloo group of one (parallel/, synthetic bags from data/), and ends with
+    rung), one encode_stream on the DCT rung and one encode_many, runs the
+    instance-sharded forward (plain and fused) and one epoch of the
+    full-bag trainer over a gloo group of one (parallel/, synthetic bags from data/), and ends with
     no jax, flax or hipt_abmil_atec23_tpu module in sys.modules."""
     _, slide_dir, ckpt, _, _, _, _, _ = served
     script = textwrap.dedent(f"""
@@ -226,8 +228,16 @@ def test_port_serve_path_imports_no_jax(served, tmp_path):
         import numpy as np
         import torch
         import chip_smoke  # noqa: F401
+        import hipt_abmil_atec23_tpu_torch.cli  # noqa: F401
+        import hipt_abmil_atec23_tpu_torch.ops.augment  # noqa: F401
+        import hipt_abmil_atec23_tpu_torch.slideio.legacy  # noqa: F401
+        import hipt_abmil_atec23_tpu_torch.slideio.pipeline  # noqa: F401
+        import hipt_abmil_atec23_tpu_torch.slideio.stitch  # noqa: F401
+        from hipt_abmil_atec23_tpu_torch.data.bags import FeatureBagStore
         from hipt_abmil_atec23_tpu_torch.engine.encode import (
-            build_encoder, encode_stream)
+            build_encoder, encode_many, encode_stream)
+        from hipt_abmil_atec23_tpu_torch.slideio.patching import (
+            save_coords_h5)
         from hipt_abmil_atec23_tpu_torch.engine.serve import (
             ServeConfig, ServeState, serve_once)
         from hipt_abmil_atec23_tpu_torch.models import vit
@@ -282,6 +292,11 @@ def test_port_serve_path_imports_no_jax(served, tmp_path):
         feats = dict(encode_stream([("ycc", slide, coords)], encoder,
                                    region_size=512, stats=stats))
         slide.close()
+        h5 = {str(tmp_path / 'ycc_coords.h5')!r}
+        save_coords_h5(h5, coords, {{"patch_size": 512, "patch_level": 0}})
+        many = encode_many([({str(slide_dir / "ycc.tif")!r}, h5, "m")],
+                           encoder, FeatureBagStore({str(tmp_path / 'f')!r}),
+                           verbose=False)
         from hipt_abmil_atec23_tpu_torch.data.bags import BagDataset
         from hipt_abmil_atec23_tpu_torch.data.synthetic import (
             make_synthetic_bags)
@@ -314,7 +329,7 @@ def test_port_serve_path_imports_no_jax(served, tmp_path):
         print(json.dumps({{"done": sorted(r["slide_id"] for r in recs),
                           "regions_dct": stats.get("regions_dct", 0),
                           "shape": list(feats["ycc"].shape),
-                          "modules": loaded}}))
+                          "many": many, "modules": loaded}}))
     """)
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env,
@@ -322,7 +337,7 @@ def test_port_serve_path_imports_no_jax(served, tmp_path):
     assert proc.returncode == 0, proc.stderr[-3000:]
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out == {"done": ["rgb", "ycc"], "regions_dct": 2,
-                   "shape": [2, 192], "modules": []}
+                   "shape": [2, 192], "many": [["m"], []], "modules": []}
 
 
 def test_encode_stream_matches_jax_across_batches(served):
