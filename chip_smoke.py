@@ -84,6 +84,28 @@ Phases (any failure exits non-zero, and no result line is printed):
      native reader are present (else one line says what is missing):
      seg_and_patch -> encode_many on two synthetic TIFFs, the bags against
      encode_slide, and the CLI's tile and encode on the same slides.
+  10. train and eval (after phase 9; the JAX package's train / evaluate
+     stages, nothing skipped): (a) the settings of
+     configs/train_winning_hipt_abmil.json (CLAM_SB hipt_smaller, no
+     instance clustering, dropout 0.85, 75 patches drawn with replacement,
+     weighted sampling, Adam lr 1e-3 wd 0.5, CE, batch 1) with max_epochs
+     4 and early stopping at min_epochs 1 / patience 1, on 60 seeded
+     192-d bags of 40-600 regions with a planted signal, written as .pt:
+     train_fold on folds 0 and 1 of the 5-fold split, then evaluate_fold
+     from the written .pt on the host stream of train_fold's test pass
+     (probabilities within 1e-6), ms per optimizer step and per epoch;
+     (b) fold 0 with dropout off from one initial .pt on the card and on
+     the CPU for 2 epochs, per-epoch train / val losses within 1e-5; (c)
+     CLAM_SB small with the instance loss (k_sample 8, bag_weight 0.7) on
+     1024-d bags of 3000-8000 instances, 4096 drawn per bag, batch 4, 2
+     epochs, ms per step; (d) evaluate_fold on 8 un-subsampled 1024-d bags
+     of 20k-100k instances with a CLAM_SB small head: gated_pool launches
+     once per slide, probabilities within 1e-4 of evaluate_split (the
+     head's own forward on the card), ms per slide; (e) bootstrap_metrics
+     with 100k resamples over (a)'s fold CSVs on the card, its first chunk
+     of 10k resamples against a numpy computation of the four metrics
+     within 1e-6, wall time. One ``train_eval {...}`` line carries the
+     numbers and the card.
   8. profile (only with --profile PATH): where one warm encode_stream's
      time goes, stage by stage (the colour and DCT decode stages through
      the kernels beside their plain chains), and torch.profiler kernel
@@ -2158,6 +2180,322 @@ def phase_files(dev, encoder, *, slide=SLIDE, region=REGION,
             raise SystemExit("the CLI's bags disagree with encode_many's")
 
 
+# ------------------------------------------------------------------ phase 10
+WINNING_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              "configs", "train_winning_hipt_abmil.json")
+LOCKSTEP_TOL = 1e-5      # card against CPU per-epoch losses: the CPU lockstep
+                         # test's tolerance (tests/test_torch_train.py)
+RELOAD_TOL = 1e-6        # evaluate_fold from the .pt against train_fold
+BOOT_TOL = 1e-6          # bootstrap chunk against numpy
+
+
+def planted_bags(n_slides, bag_range, d, seed, signal=1.0, fraction=0.3):
+    """Seeded N(0, 1) bags whose class-1 slides carry +signal along one
+    direction on a share of their instances (data/synthetic.py's plan,
+    without its pandas manifest). Returns ({slide_id: bag}, labels)."""
+    rng = np.random.default_rng(seed)
+    direction = rng.normal(size=d).astype(np.float32)
+    direction /= np.linalg.norm(direction)
+    bags, labels = {}, np.arange(n_slides) % 2
+    for i in range(n_slides):
+        n = int(rng.integers(*bag_range))
+        bag = rng.standard_normal((n, d), dtype=np.float32)
+        if labels[i]:
+            bag[rng.choice(n, max(1, int(fraction * n)), replace=False)] += \
+                signal * direction
+        bags[f"slide_{i:03d}"] = bag
+    return bags, labels
+
+
+def bootstrap_reference(labels, probs, idx):
+    """(auc, f1, acc, balanced_acc) of each resample row of ``idx`` in
+    numpy, one row at a time: AUC by midranks (engine/metrics.binary_auc,
+    NaN without both classes), F1 of class 1, accuracy, and the mean
+    recall over the classes present."""
+    from hipt_abmil_atec23_tpu_torch.engine.metrics import binary_auc
+    preds = probs.argmax(1)
+    out = np.zeros((4, len(idx)))
+    for r, row in enumerate(idx):
+        lab, prd = labels[row], preds[row]
+        tp = np.sum((prd == 1) & (lab == 1))
+        denom = 2 * tp + np.sum((prd == 1) & (lab == 0)) + \
+            np.sum((prd == 0) & (lab == 1))
+        out[:, r] = (binary_auc(lab, probs[row, 1]),
+                     2 * tp / max(denom, 1), np.mean(lab == prd),
+                     np.mean([np.mean(prd[lab == c] == c)
+                              for c in np.unique(lab)]))
+    return out
+
+
+class _StepTimer:
+    """Times every train_epoch of the StepFns that train_fold builds
+    (synchronised): (steps, seconds) per epoch."""
+
+    def __init__(self, dev):
+        from hipt_abmil_atec23_tpu_torch.engine import train as tr
+        self.tr, self.dev, self.epochs = tr, dev, []
+
+    def __enter__(self):
+        real = self.real = self.tr.build_step_fns
+
+        def build(*a, **k):
+            fns = real(*a, **k)
+            inner = fns.train_epoch
+
+            def timed(model, opt, feats, *rest):
+                _sync(self.dev)
+                t0 = time.perf_counter()
+                out = inner(model, opt, feats, *rest)
+                _sync(self.dev)
+                self.epochs.append((len(feats), time.perf_counter() - t0))
+                return out
+            fns.train_epoch = timed
+            return fns
+        self.tr.build_step_fns = build
+        return self
+
+    def __exit__(self, *exc):
+        self.tr.build_step_fns = self.real
+
+    def ms_per_step(self, skip=1):
+        """Mean over the epochs after the first ``skip`` (warm)."""
+        warm = self.epochs[skip:] or self.epochs
+        return 1e3 * sum(t for _, t in warm) / sum(n for n, _ in warm)
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _fold_sets(bags, labels, store, cfg, splits, fold):
+    from hipt_abmil_atec23_tpu_torch.data.bags import BagDataset
+    ids = list(bags)
+    return [BagDataset([ids[i] for i in part], labels[part], store, cfg.bags)
+            for part in splits[fold]]
+
+
+def phase_train_eval(dev, smi, *, n_slides=60, bag_range=(40, 600),
+                     inst_bags=(24, (3000, 8000)), full_bags=(8, (20_000,
+                     100_000)), inst_size="small", n_boot=100_000) -> dict:
+    """The train and eval stages: (a) the winning configuration, (b) card
+    against CPU in lockstep, (c) the instance-clustering path, (d)
+    full-bag evaluation through the pool kernel, (e) the bootstrap on the
+    card. Counts zeroed before (a), read after (e)."""
+    import dataclasses
+    from hipt_abmil_atec23_tpu_torch.data.bags import (BagDataset,
+                                                       FeatureBagStore)
+    from hipt_abmil_atec23_tpu_torch.data.splits import (
+        generate_kfold_splits)
+    from hipt_abmil_atec23_tpu_torch.engine import evaluate as ev
+    from hipt_abmil_atec23_tpu_torch.engine import metrics as M
+    from hipt_abmil_atec23_tpu_torch.engine import train as tr
+    from hipt_abmil_atec23_tpu_torch.engine.checkpoint import (
+        ckpt_path, save_params)
+    from hipt_abmil_atec23_tpu_torch.engine.experiment import _write_fold_csv
+    from hipt_abmil_atec23_tpu_torch.utils.config import ExperimentConfig
+
+    out = {"card": smi}
+    zero_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) the winning configuration at full width
+        bags, labels = planted_bags(n_slides, bag_range, 192, seed=21)
+        store = FeatureBagStore(os.path.join(tmp, "feats"))
+        for sid, bag in bags.items():
+            store.save(sid, bag, formats=("pt",))
+        with open(WINNING_CONFIG) as f:   # its "_comment" is no field
+            cfg = ExperimentConfig.from_dict(
+                {k: v for k, v in json.load(f).items() if k[0] != "_"})
+        cfg.results_dir = os.path.join(tmp, "winning")
+        cfg.train = dataclasses.replace(cfg.train, max_epochs=4,
+                                        min_epochs=1, patience=1,
+                                        stop_epoch=1)
+        splits = generate_kfold_splits(labels, cfg.train.k,
+                                       seed=cfg.train.seed)
+        counts = np.bincount(labels, minlength=2)
+        folds = []
+        for fold in (0, 1):
+            sets = _fold_sets(bags, labels, store, cfg, splits, fold)
+            draws = []
+            real_split = tr.evaluate_split
+
+            def recording(fns, model, ds, n_pad, rng, *a, **k):
+                draws.append(rng.bit_generator.state)
+                return real_split(fns, model, ds, n_pad, rng, *a, **k)
+            ticks = []
+            tr.evaluate_split = recording
+            try:
+                with _StepTimer(dev) as st:
+                    t0 = time.perf_counter()
+                    res = tr.train_fold(
+                        cfg, fold, *sets, counts, verbose=False, device=dev,
+                        log_cb=lambda e, r: ticks.append(time.perf_counter()))
+            finally:
+                tr.evaluate_split = real_split
+            epoch_s = np.diff([t0] + ticks).tolist()
+            # evaluate_fold from the .pt, on the host stream train_fold's
+            # test pass drew its bags from (its last evaluate_split)
+            test_rng = np.random.default_rng()
+            test_rng.bit_generator.state = draws[-1]
+            real_rng = ev.host_rng
+            ev.host_rng = lambda *a: test_rng
+            try:
+                again = ev.evaluate_fold(cfg, fold, sets[2], counts,
+                                         cfg.results_dir, device=dev)
+            finally:
+                ev.host_rng = real_rng
+            err = float(np.abs(again.test_probs - res.test_probs).max())
+            _write_fold_csv(cfg.results_dir, res)
+            log(f"train_eval (a) winning config fold {fold}: stopped at "
+                f"epoch {res.stopped_epoch}, history "
+                f"{[{k: round(v, 6) for k, v in h.items()} for h in res.history]}"
+                f", val AUC {res.val_auc:.4f} test AUC {res.test_auc:.4f}; "
+                f"{st.ms_per_step():.3f} ms per optimizer step, epochs "
+                f"{[round(1e3 * t, 1) for t in epoch_s]} ms; evaluate_fold "
+                f"from the .pt against train_fold's test probabilities "
+                f"max |d| {err:.3g} (bound {RELOAD_TOL})")
+            if not (err <= RELOAD_TOL and np.isfinite(res.test_probs).all()):
+                raise SystemExit("evaluate_fold from the checkpoint does not "
+                                 "reproduce train_fold's test probabilities")
+            folds.append(dict(fold=fold, stopped_epoch=res.stopped_epoch,
+                              ms_per_step=st.ms_per_step(),
+                              steps_per_epoch=st.epochs[0][0],
+                              ms_per_epoch=[1e3 * t for t in epoch_s],
+                              test_auc=res.test_auc, reload_err=err))
+        out["winning"] = folds
+
+        # (b) card against CPU in lockstep: dropout off, one initial state
+        # dict, one host stream
+        sets = _fold_sets(bags, labels, store, cfg, splits, 0)
+        lock = dataclasses.replace(
+            cfg, model=dataclasses.replace(cfg.model, drop_out=0.0),
+            train=dataclasses.replace(cfg.train, max_epochs=2,
+                                      early_stopping=False,
+                                      continue_training=True))
+        init = tr.build_step_fns(lock, counts, 8, 192, device="cpu"
+                                 ).init_params(torch.Generator().manual_seed(5))
+        hist = []
+        for i, where in enumerate((dev, torch.device("cpu"))):
+            lock.results_dir = os.path.join(tmp, f"lock_{i}")
+            save_params(ckpt_path(lock.results_dir, 0), init)
+            hist.append(tr.train_fold(lock, 0, *sets, counts, verbose=False,
+                                      device=where).history)
+        gap_ = max(abs(a[k] - b[k]) for a, b in zip(*hist)
+                   for k in ("train_loss", "val_loss"))
+        log(f"train_eval (b) {dev.type} against cpu, 2 epochs: per-epoch "
+            f"train / val loss max |d| {gap_:.3g} (bound {LOCKSTEP_TOL}); "
+            f"{dev.type} {[(h['train_loss'], h['val_loss']) for h in hist[0]]}")
+        if not gap_ <= LOCKSTEP_TOL:
+            raise SystemExit("card and CPU training disagree")
+        out["lockstep_gap"] = gap_
+
+        # (c) the instance-clustering path: CLAM_SB small, batch 4
+        n_inst, inst_range = inst_bags
+        ibags, ilabels = planted_bags(n_inst, inst_range, 1024, seed=22)
+        istore = MemoryBagStore(ibags)
+        icfg = ExperimentConfig.from_dict({
+            "results_dir": os.path.join(tmp, "inst"),
+            "task": {"n_classes": 2},
+            "bags": {"max_patches_per_slide": 4096, "batch_size": 4},
+            "model": {"model_type": "clam_sb", "model_size": inst_size,
+                      "no_inst_cluster": False, "k_sample": 8},
+            "train": {"lr": 2e-4, "reg": 1e-5, "bag_weight": 0.7,
+                      "max_epochs": 2, "early_stopping": False, "seed": 3}})
+        ids = list(ibags)
+        parts = (np.arange(0, n_inst - 8), np.arange(n_inst - 8, n_inst - 4),
+                 np.arange(n_inst - 4, n_inst))
+        isets = [BagDataset([ids[i] for i in p], ilabels[p], istore,
+                            icfg.bags) for p in parts]
+        with _StepTimer(dev) as st:
+            ires = tr.train_fold(icfg, 0, *isets,
+                                 np.bincount(ilabels, minlength=2),
+                                 verbose=False, device=dev)
+        inst_losses = [h["train_inst_loss"] for h in ires.history]
+        log(f"train_eval (c) instance clustering, CLAM_SB {inst_size}, "
+            f"[4, 4096, 1024] per step: {st.ms_per_step():.3f} ms per "
+            f"optimizer step ({st.epochs[0][0]} steps per epoch, epochs "
+            f"{[round(1e3 * t, 1) for _, t in st.epochs]} ms), instance "
+            f"loss {inst_losses}")
+        if not (all(np.isfinite(inst_losses)) and min(inst_losses) > 0):
+            raise SystemExit("the instance-clustering loss is not positive "
+                             "and finite")
+        out["inst_ms_per_step"] = st.ms_per_step()
+        del ibags, istore, isets
+
+        # (d) full-bag evaluation through the pool kernel (B.2)
+        n_full, full_range = full_bags
+        fbags, flabels = planted_bags(n_full, full_range, 1024, seed=23)
+        fcfg = dataclasses.replace(
+            icfg, bags=dataclasses.replace(icfg.bags,
+                                           max_patches_per_slide=None),
+            results_dir=os.path.join(tmp, "full"))
+        fds = BagDataset(list(fbags), flabels, MemoryBagStore(fbags),
+                         fcfg.bags)
+        head = _reference_clam(inst_size, 24, torch.device("cpu"))
+        save_params(ckpt_path(fcfg.results_dir, 0), head)
+        fcounts = np.bincount(flabels, minlength=2)
+        before = read_counts()["gated_pool"]
+        _sync(dev)
+        t0 = time.perf_counter()
+        fres = ev.evaluate_fold(fcfg, 0, fds, fcounts, fcfg.results_dir,
+                                device=dev)
+        _sync(dev)
+        full_s = time.perf_counter() - t0
+        launched = read_counts()["gated_pool"] - before
+        fns = tr.build_step_fns(fcfg, fcounts, 8, 1024, device=dev)
+        model = fns.init_params()
+        model.load_state_dict(head.state_dict())
+        plain, _ = tr.evaluate_split(fns, model, fds, fds.pad_size(),
+                                     np.random.default_rng(0))
+        err = float(np.abs(plain - fres.test_probs).max())
+        sizes = [len(b) for b in fbags.values()]
+        log(f"train_eval (d) evaluate_fold on {n_full} full bags of "
+            f"{min(sizes)}-{max(sizes)} x 1024 (CLAM_SB {inst_size}): "
+            f"{launched} gated_pool launches, {1e3 * full_s / n_full:.2f} ms "
+            f"per slide (host bag to card included); against the head's own "
+            f"forward (evaluate_split) max |d| {err:.3g} (bound {POOL_TOL})")
+        if launched != n_full or not err <= POOL_TOL:
+            raise SystemExit("full-bag evaluation did not launch the pool "
+                             "once per slide or disagrees with the head")
+        out.update(full_ms_per_slide=1e3 * full_s / n_full,
+                   full_launches=launched, full_err=err)
+        del fbags, fds
+
+        # (e) the bootstrap on the card over (a)'s fold CSVs
+        blabels, bprobs = ev.read_fold_csvs([cfg.results_dir], [0, 1])
+        _sync(dev)
+        t0 = time.perf_counter()
+        boot = M.bootstrap_metrics(blabels, bprobs, n_bootstraps=n_boot,
+                                   seed=0, device=dev)
+        _sync(dev)
+        boot_s = time.perf_counter() - t0
+        g = torch.Generator(device=dev).manual_seed(0)
+        n = len(blabels)
+        chunk = min(10_000, n_boot)
+        idx = torch.randint(0, n, (chunk, n), generator=g, device=dev)
+        tl = torch.as_tensor(blabels.astype(np.int64), device=dev)
+        tp = torch.as_tensor(bprobs, device=dev)
+        got = torch.stack(M.bootstrap_chunk(tl, tp, tp.argmax(1), idx, 2)
+                          ).cpu().numpy()
+        want = bootstrap_reference(blabels, bprobs, idx.cpu().numpy())
+        same = np.stack([boot.auc[:chunk], boot.f1[:chunk], boot.acc[:chunk],
+                         boot.balanced_acc[:chunk]])
+        berr = float(np.nanmax(np.abs(got - want)))
+        ok = np.array_equal(np.isnan(got), np.isnan(want)) and \
+            np.allclose(got, same, rtol=0, atol=BOOT_TOL, equal_nan=True)
+        summ = boot.summarize()
+        log(f"train_eval (e) bootstrap_metrics, {n_boot} resamples of {n} "
+            f"slides: {boot_s:.3f} s wall; first chunk of {chunk} against "
+            f"numpy max |d| {berr:.3g} (bound {BOOT_TOL}); AUC "
+            f"{summ['auc']['mean']:.4f} +/- {summ['auc']['std']:.4f}")
+        if not (ok and berr <= BOOT_TOL):
+            raise SystemExit("the bootstrap chunk disagrees with numpy")
+        out.update(boot_s=boot_s, boot_err=berr, boot_n=n)
+    launches = read_counts()
+    log("train_eval " + json.dumps(out))
+    return {"launches": launches, "owned": {}}
+
+
 def set_launches(records, paths) -> None:
     """Each record's launches from the run of the path that owns its kernel
     (``paths``: name -> a phase's result, whose "owned" holds the counts
@@ -2197,6 +2535,7 @@ def main() -> int:
     sres = phase_sharded(dev)
     phase_serve(dev, res["encoder"], res["clam"])
     eres = phase_encode_stage(dev, res, dres, dct_slides, planes[0])
+    tres = phase_train_eval(dev, smi)
     missing = missing_file_deps(("cv2", "h5py", "pandas"))
     if missing:
         log(f"encode stage, file-bound part: skipped, missing {missing}")
@@ -2208,7 +2547,7 @@ def main() -> int:
     records = kres["records"]
     set_launches(records, {**kres["paths"], "plane": res, "dct": dres,
                            "per_op": pres, "sharded": sres,
-                           "encode_stage": eres})
+                           "encode_stage": eres, "train_eval": tres})
     records["fused_block"].update(
         launches_vit256=eres["launches_vit256"],
         ms_256x264x384=eres.get("block_ms_vit256"))

@@ -1,24 +1,32 @@
-"""The port's command line: the tile, encode and serve stages.
+"""The port's command line: the tile, encode, train, eval, splits,
+bootstrap, count and serve stages.
 
-    python -m hipt_abmil_atec23_tpu_torch.cli <tile|encode|serve> [flags]
+    python -m hipt_abmil_atec23_tpu_torch.cli <tile|encode|train|eval|splits|
+                                               bootstrap|count|serve> [flags]
 
-Each subcommand takes the JAX package's flags (hipt_abmil_atec23_tpu/cli.py:
-tile, encode, serve) and writes the same artifacts, so either package reads
-what the other wrote: coords h5s, masks and stitches under the tile stage's
-save_dir, feature bags in the reference layout under feat_dir, the serve
-journal and results. ``--device`` picks the card (``cuda``, the default) or
-the CPU (``cpu``). Choices the port does not have yet (the ResNet and LeViT
-encoders, flax MIL checkpoints) raise an error that names the ROADMAP item
-that ports them; the other subcommands of the JAX CLI are not ported yet.
+Each subcommand takes the JAX package's flags (hipt_abmil_atec23_tpu/cli.py)
+and writes the same artifacts, so either package reads what the other wrote:
+coords h5s, masks and stitches under the tile stage's save_dir, feature bags
+in the reference layout under feat_dir, split CSVs, fold CSVs, summaries and
+the experiment settings, the serve journal and results. Checkpoints are the
+reference's ``s_{fold}_checkpoint.pt``. ``--device`` picks the card
+(``cuda``, the default) or the CPU (``cpu``). Choices the port does not have
+yet (the ResNet and LeViT encoders, flax MIL checkpoints, tuning, fold- and
+trial-parallel training, DRAS sampling, online encoding) raise an error
+that names the ROADMAP item that ports them; heatmap, knn, export and
+parity are not ported yet.
 """
 from __future__ import annotations
 
 import argparse
 import csv
+import json
 import os
 import sys
 import time
 from typing import List, Optional
+
+import numpy as np
 
 ENCODERS = ["resnet18", "resnet50", "levit_128s", "levit_256", "HIPT_4K",
             "vit256"]
@@ -168,6 +176,370 @@ def _cmd_encode(a):
               f"({', '.join(s for s, _ in failed)}) -> {fcsv}")
 
 
+# train / eval flags the port refuses, with the ROADMAP item that ports them
+_NOT_PORTED = {"tuning": "§A.10", "trial_parallel": "§A.10",
+               "fold_parallel": "§A.10", "sampling": "§A.9",
+               "use_sampling": "§A.9", "extract_features": "§A.11"}
+
+
+def _add_train(sub):
+    p = sub.add_parser("train", help="k-fold CV MIL training "
+                       "(reference: main.py)")
+    p.add_argument("--task", default="treatment")
+    p.add_argument("--csv_path", required=True)
+    p.add_argument("--feat_dir", required=True)
+    p.add_argument("--results_dir", required=True)
+    p.add_argument("--exp_code", default="exp")
+    p.add_argument("--split_dir", default="")
+    p.add_argument("--model_type", default="clam_sb",
+                   choices=["clam_sb", "clam_mb", "mil"])
+    p.add_argument("--model_size", default="hipt_smaller")
+    p.add_argument("--drop_out", type=float, default=0.0)
+    p.add_argument("--no_inst_cluster", action="store_true")
+    p.add_argument("--subtyping", action="store_true")
+    p.add_argument("--B", type=int, default=8, help="k_sample")
+    p.add_argument("--lr", type=float, default=1e-3)
+    p.add_argument("--reg", type=float, default=1e-5)
+    p.add_argument("--opt", default="adam", choices=["adam", "sgd"])
+    p.add_argument("--bag_loss", default="ce",
+                   choices=["ce", "balanced_ce", "svm"])
+    p.add_argument("--bag_weight", type=float, default=0.7)
+    p.add_argument("--max_epochs", type=int, default=100)
+    p.add_argument("--min_epochs", type=int, default=50)
+    p.add_argument("--no_early_stopping", action="store_true")
+    p.add_argument("--weighted_sample", action="store_true")
+    p.add_argument("--max_patches_per_slide", type=int, default=75)
+    p.add_argument("--perturb_variance", type=float, default=0.0)
+    p.add_argument("--number_of_augs", type=int, default=0)
+    p.add_argument("--batch_size", type=int, default=1,
+                   help="bags per optimizer step (1 = reference-faithful)")
+    p.add_argument("--k", type=int, default=5)
+    p.add_argument("--k_start", type=int, default=-1)
+    p.add_argument("--k_end", type=int, default=-1)
+    p.add_argument("--seed", type=int, default=1)
+    p.add_argument("--continue_training", action="store_true")
+    p.add_argument("--epoch_chunk", type=int, default=1,
+                   help="epochs of batches drawn on the host at once "
+                        "(the JAX package's draw order)")
+    p.add_argument("--full_bag_sharded", action="store_true",
+                   help="exact full-bag training: the instance axis shards "
+                        "over the process group (no subsampling; clam_sb)")
+    p.add_argument("--profile", action="store_true")
+    p.add_argument("--trace", default=None, metavar="DIR",
+                   help="write a torch.profiler trace of the run to DIR")
+    p.add_argument("--log_data", action="store_true")
+    p.add_argument("--debug_loader", action="store_true",
+                   help="iterate the data pipeline once without training "
+                        "(reference: --debug_loader)")
+    # not ported yet: each is refused, naming its ROADMAP item
+    for flag in ("sampling", "tuning", "trial_parallel", "fold_parallel",
+                 "extract_features"):
+        p.add_argument(f"--{flag}", action="store_true",
+                       help=f"not ported yet (ROADMAP {_NOT_PORTED[flag]})")
+    _add_route_flags(p, "train")
+    _add_device(p)
+
+
+# the JAX CLI's flags that act only on a route above; accepted (with or
+# without a value) so its command lines parse, and unused
+_ROUTE_FLAGS = {
+    "train": ("sampling_type texture_model texture_feat_dir sampling_average "
+              "device_sampling samples_per_iteration resampling_iterations "
+              "sampling_random sampling_random_delta sampling_neighbors "
+              "final_sample_size weight_smoothing sampling_update "
+              "no_sampling_epochs fully_random grid_sample "
+              "num_tuning_samples tuning_output_file checkpoint_trials "
+              "resume_tuning grace_period data_h5_dir data_slide_dir "
+              "slide_ext model_architecture pretraining_dataset "
+              "use_transforms vit256_ckpt vit4k_ckpt resnet_ckpt"),
+    "eval": ("device_sampling samples_per_iteration resampling_iterations "
+             "sampling_neighbors final_sample_size weight_smoothing "
+             "sampling_random sampling_random_delta fully_random "
+             "sampling_type texture_model texture_feat_dir sampling_average "
+             "tune_sampling num_tuning_samples eval_features data_slide_dir "
+             "data_h5_dir eval_encoder resnet_ckpt vit256_ckpt vit4k_ckpt")}
+
+
+def _add_route_flags(p, cmd: str) -> None:
+    for name in _ROUTE_FLAGS[cmd].split():
+        p.add_argument(f"--{name}", nargs="?", const=True,
+                       help="acts only on a route not ported yet")
+
+
+def _refuse_not_ported(a, cmd: str) -> None:
+    for flag, item in _NOT_PORTED.items():
+        if getattr(a, flag, False):
+            raise NotImplementedError(f"{cmd} --{flag} is not ported yet "
+                                      f"(ROADMAP {item})")
+
+
+def _train_cfg(a):
+    import dataclasses
+    from hipt_abmil_atec23_tpu_torch.data.tasks import get_task
+    from hipt_abmil_atec23_tpu_torch.utils.config import (
+        BagConfig, ExperimentConfig, ModelConfig, TrainConfig)
+    task = dataclasses.replace(get_task(a.task), csv_path=a.csv_path)
+    return ExperimentConfig(
+        exp_code=a.exp_code, results_dir=a.results_dir, split_dir=a.split_dir,
+        log_data=a.log_data, task=task,
+        bags=BagConfig(feat_dir=a.feat_dir,
+                       max_patches_per_slide=a.max_patches_per_slide,
+                       perturb_variance=a.perturb_variance,
+                       number_of_augs=a.number_of_augs,
+                       batch_size=a.batch_size),
+        model=ModelConfig(model_type=a.model_type, model_size=a.model_size,
+                          drop_out=a.drop_out,
+                          no_inst_cluster=a.no_inst_cluster,
+                          subtyping=a.subtyping, k_sample=a.B),
+        train=TrainConfig(lr=a.lr, reg=a.reg, opt=a.opt, bag_loss=a.bag_loss,
+                          bag_weight=a.bag_weight, max_epochs=a.max_epochs,
+                          min_epochs=a.min_epochs,
+                          early_stopping=not a.no_early_stopping,
+                          weighted_sample=a.weighted_sample, seed=a.seed,
+                          k=a.k, k_start=a.k_start, k_end=a.k_end,
+                          continue_training=a.continue_training,
+                          epoch_chunk=a.epoch_chunk))
+
+
+def _debug_loader(cfg, manifest, store) -> None:
+    """Load every bag once, no training (reference: --debug_loader,
+    core_utils.py:205-208)."""
+    from hipt_abmil_atec23_tpu_torch.data.bags import BagDataset
+    rng = np.random.default_rng(cfg.train.seed)
+    ds = BagDataset(list(manifest.slide_ids), manifest.labels, store,
+                    cfg.bags)
+    sizes = []
+    for i, sid in enumerate(ds.slide_ids):
+        bag = ds.get_bag(i, rng)
+        sizes.append(len(bag))
+        print(f"[debug_loader] {sid}: bag {bag.shape}")
+    print(f"[debug_loader] {len(sizes)} bags OK; "
+          f"mean {np.mean(sizes):.1f} max {np.max(sizes)}")
+
+
+def _train_full_bags(cfg, manifest, store, device) -> None:
+    """Exact full-bag training with the instance axis sharded over the
+    process group (parallel/full_bag_train.py): every slide trains on all
+    of its instances."""
+    import pandas as pd
+    import torch.distributed as dist
+    from hipt_abmil_atec23_tpu_torch.engine.checkpoint import (
+        ckpt_path, save_params)
+    from hipt_abmil_atec23_tpu_torch.engine.experiment import (
+        make_fold_datasets)
+    from hipt_abmil_atec23_tpu_torch.parallel.full_bag_train import (
+        train_full_bags_sharded)
+    from hipt_abmil_atec23_tpu_torch.parallel.mesh import make_mesh
+    from hipt_abmil_atec23_tpu_torch.parallel.multihost import init_multihost
+    world = init_multihost(device=device)
+    try:
+        mesh = make_mesh([("inst", world)], device.type)
+        os.makedirs(cfg.results_dir, exist_ok=True)
+        rows = []
+        for fold in range(cfg.train.k):
+            tr, va, _ = make_fold_datasets(manifest, store, cfg, fold)
+            model, hist = train_full_bags_sharded(cfg, tr, va, mesh)
+            save_params(ckpt_path(cfg.results_dir, fold), model)
+            pd.DataFrame(hist).to_csv(
+                os.path.join(cfg.results_dir, f"history_{fold}.csv"),
+                index=False)
+            rows.append({"folds": fold, "val_auc": hist[-1]["val_auc"],
+                         "val_loss": hist[-1]["val_loss"]})
+        summary = pd.DataFrame(rows)
+        summary.to_csv(os.path.join(cfg.results_dir, "summary.csv"),
+                       index=False)
+        print(summary)
+    finally:
+        dist.destroy_process_group()
+
+
+def _cmd_train(a):
+    import contextlib
+    from hipt_abmil_atec23_tpu_torch.data.bags import FeatureBagStore
+    from hipt_abmil_atec23_tpu_torch.data.manifest import SlideManifest
+    from hipt_abmil_atec23_tpu_torch.device import resolve_device
+    _refuse_not_ported(a, "train")
+    device = resolve_device(a.device)
+    cfg = _train_cfg(a)
+    manifest = SlideManifest.from_csv(a.csv_path, cfg.task.label_dict,
+                                      ignore=cfg.task.ignore)
+    store = FeatureBagStore(a.feat_dir)
+    if a.debug_loader:
+        _debug_loader(cfg, manifest, store)
+        return
+
+    def run():
+        if a.full_bag_sharded:
+            _train_full_bags(cfg, manifest, store, device)
+            return
+        from hipt_abmil_atec23_tpu_torch.engine.experiment import run_cv
+        summary, _ = run_cv(cfg, manifest, store, device=device)
+        print(summary)
+
+    ctx = contextlib.nullcontext()
+    if a.trace:
+        from hipt_abmil_atec23_tpu_torch.utils.logging import trace
+        ctx = trace(a.trace)
+    with ctx:
+        if a.profile:
+            # reference: --profile wraps main in cProfile (main.py:514-521)
+            import cProfile
+            import pstats
+            pr = cProfile.Profile()
+            pr.enable()
+            run()
+            pr.disable()
+            pstats.Stats(pr).sort_stats("cumulative").print_stats(25)
+        else:
+            run()
+
+
+def _add_eval(sub):
+    p = sub.add_parser("eval", help="per-fold checkpoint inference "
+                       "(reference: eval.py)")
+    p.add_argument("--task", default="treatment")
+    p.add_argument("--csv_path", required=True)
+    p.add_argument("--feat_dir", required=True)
+    p.add_argument("--models_dir", required=True)
+    p.add_argument("--save_dir", required=True)
+    p.add_argument("--split_dir", default="")
+    p.add_argument("--splits", default="test", choices=["test", "val", "all"])
+    p.add_argument("--model_type", default="clam_sb")
+    p.add_argument("--model_size", default="hipt_smaller")
+    p.add_argument("--drop_out", type=float, default=0.0)
+    p.add_argument("--k", type=int, default=5)
+    p.add_argument("--folds", type=int, nargs="*", default=None)
+    p.add_argument("--max_patches_per_slide", type=int, default=75)
+    p.add_argument("--seed", type=int, default=1)
+    p.add_argument("--use_sampling", action="store_true",
+                   help="inference-time DRAS sampling: not ported yet "
+                        "(ROADMAP §A.9)")
+    _add_route_flags(p, "eval")
+    _add_device(p)
+
+
+def _cmd_eval(a):
+    import dataclasses
+    from hipt_abmil_atec23_tpu_torch.data.bags import FeatureBagStore
+    from hipt_abmil_atec23_tpu_torch.data.manifest import SlideManifest
+    from hipt_abmil_atec23_tpu_torch.data.tasks import get_task
+    from hipt_abmil_atec23_tpu_torch.device import resolve_device
+    from hipt_abmil_atec23_tpu_torch.engine.evaluate import run_eval
+    from hipt_abmil_atec23_tpu_torch.utils.config import (
+        BagConfig, ExperimentConfig, ModelConfig, TrainConfig)
+    _refuse_not_ported(a, "eval")
+    device = resolve_device(a.device)
+    task = dataclasses.replace(get_task(a.task), csv_path=a.csv_path)
+    cfg = ExperimentConfig(
+        exp_code="eval", results_dir=a.save_dir, split_dir=a.split_dir,
+        task=task,
+        bags=BagConfig(feat_dir=a.feat_dir,
+                       max_patches_per_slide=a.max_patches_per_slide),
+        model=ModelConfig(model_type=a.model_type, model_size=a.model_size,
+                          drop_out=a.drop_out),
+        train=TrainConfig(k=a.k, seed=a.seed))
+    manifest = SlideManifest.from_csv(a.csv_path, task.label_dict)
+    run_eval(cfg, manifest, FeatureBagStore(a.feat_dir), a.models_dir,
+             a.save_dir, splits=a.splits, folds=a.folds, device=device)
+
+
+def _add_splits(sub):
+    p = sub.add_parser("splits", help="generate k-fold split CSVs "
+                       "(reference: create_splits_seq.py)")
+    p.add_argument("--task", default="treatment")
+    p.add_argument("--csv_path", required=True)
+    p.add_argument("--split_dir", required=True)
+    p.add_argument("--k", type=int, default=5)
+    p.add_argument("--seed", type=int, default=1)
+    _add_device(p)
+
+
+def _cmd_splits(a):
+    # host work only: --device is taken for a uniform command line
+    from hipt_abmil_atec23_tpu_torch.data.manifest import SlideManifest
+    from hipt_abmil_atec23_tpu_torch.data.splits import (
+        check_split_disjoint, generate_kfold_splits, save_split_bool_csv,
+        save_split_csv, save_split_descriptor)
+    from hipt_abmil_atec23_tpu_torch.data.tasks import get_task
+    task = get_task(a.task)
+    manifest = SlideManifest.from_csv(a.csv_path, task.label_dict,
+                                      ignore=task.ignore)
+    os.makedirs(a.split_dir, exist_ok=True)
+    ids = list(manifest.slide_ids)
+    for i, s in enumerate(generate_kfold_splits(manifest.labels, a.k,
+                                                seed=a.seed)):
+        check_split_disjoint(s)
+        save_split_csv(os.path.join(a.split_dir, f"splits_{i}.csv"), ids, s)
+        save_split_bool_csv(
+            os.path.join(a.split_dir, f"splits_{i}_bool.csv"), ids, s)
+        save_split_descriptor(
+            os.path.join(a.split_dir, f"splits_{i}_descriptor.csv"),
+            manifest.labels, s, task.n_classes)
+    print(f"[splits] wrote {a.k} folds to {a.split_dir}")
+
+
+def _add_bootstrap(sub):
+    p = sub.add_parser("bootstrap", help="bootstrap CIs from fold CSVs "
+                       "(reference: bootstrapping.py)")
+    p.add_argument("--dirs", nargs="+", required=True)
+    p.add_argument("--folds", type=int, nargs="+", default=[0, 1, 2, 3, 4])
+    p.add_argument("--bootstraps", type=int, default=100_000)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--out", default=None)
+    p.add_argument("--plot_roc", action="store_true",
+                   help="pooled ROC curve per run-repeat dir "
+                        "(reference: bootstrapping.py --plot_roc_curves)")
+    p.add_argument("--roc_plot_path", default="roc_curves.png")
+    _add_device(p)
+
+
+def _cmd_bootstrap(a):
+    from hipt_abmil_atec23_tpu_torch.engine.evaluate import (
+        bootstrap_from_fold_csvs, plot_roc_curves)
+    out = bootstrap_from_fold_csvs(a.dirs, a.folds,
+                                   n_bootstraps=a.bootstraps, seed=a.seed,
+                                   device=a.device)
+    text = json.dumps(out, indent=2)
+    print(text)
+    if a.out:
+        with open(a.out, "w") as f:
+            f.write(text)
+    if a.plot_roc:
+        print(f"[bootstrap] ROC plot -> "
+              f"{plot_roc_curves(a.dirs, a.folds, a.roc_plot_path)}")
+
+
+def _add_count(sub):
+    p = sub.add_parser("count", help="patch-count statistics "
+                       "(reference: count_patches.py)")
+    p.add_argument("--patches_dir", required=True)
+    p.add_argument("--csv_path", default=None)
+    _add_device(p)
+
+
+def _cmd_count(a):
+    # host work only: --device is taken for a uniform command line
+    import h5py
+    import pandas as pd
+    rows = []
+    for f in sorted(os.listdir(a.patches_dir)):
+        if not f.endswith(".h5"):
+            continue
+        with h5py.File(os.path.join(a.patches_dir, f), "r") as h:
+            rows.append({"slide_id": os.path.splitext(f)[0],
+                         "n_patches": len(h["coords"])})
+    df = pd.DataFrame(rows)
+    if a.csv_path and os.path.exists(a.csv_path):
+        labels = pd.read_csv(a.csv_path)
+        labels["slide_id"] = labels["slide_id"].astype(str)
+        df = df.merge(labels[["slide_id", "label"]], on="slide_id",
+                      how="left")
+        print(df.groupby("label")["n_patches"].agg(["count", "sum", "mean"]))
+    print(f"total {df['n_patches'].sum()} patches over {len(df)} slides; "
+          f"mean {df['n_patches'].mean():.1f} "
+          f"median {df['n_patches'].median():.1f}")
+
+
 def _add_serve(sub):
     p = sub.add_parser("serve", help="continuous slide-inference service: "
                        "watch a folder, tile+encode+score new slides "
@@ -210,8 +582,10 @@ def _cmd_serve(a):
         ServeConfig, ServeState, serve_forever, serve_once, write_config)
     from hipt_abmil_atec23_tpu_torch.utils.config import (
         EncoderConfig, ModelConfig, SegConfig, TileConfig)
+    from hipt_abmil_atec23_tpu_torch.models.abmil import check_model_type
     # refused before serving starts: the daemon logs a failed drain and
     # polls on, so these would otherwise never stop it
+    check_model_type(a.model_type)
     if a.encoder in NOT_PORTED_ENCODERS:
         raise NotImplementedError(f"encoder {a.encoder!r} is not ported yet "
                                   "(ROADMAP §A.11)")
@@ -250,10 +624,13 @@ def main(argv: Optional[List[str]] = None) -> int:
         prog="hipt_abmil_atec23_tpu_torch",
         description="WSI MIL pipeline on PyTorch + CUDA")
     sub = parser.add_subparsers(dest="cmd", required=True)
-    for add in (_add_tile, _add_encode, _add_serve):
+    for add in (_add_tile, _add_encode, _add_train, _add_eval, _add_splits,
+                _add_bootstrap, _add_count, _add_serve):
         add(sub)
     a = parser.parse_args(argv)
-    {"tile": _cmd_tile, "encode": _cmd_encode, "serve": _cmd_serve}[a.cmd](a)
+    {"tile": _cmd_tile, "encode": _cmd_encode, "train": _cmd_train,
+     "eval": _cmd_eval, "splits": _cmd_splits, "bootstrap": _cmd_bootstrap,
+     "count": _cmd_count, "serve": _cmd_serve}[a.cmd](a)
     return 0
 
 

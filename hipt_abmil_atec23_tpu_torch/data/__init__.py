@@ -1,1 +1,1 @@
-"""Feature-bag storage of the port."""
+"""Feature-bag storage, bag datasets, splits and tasks of the port."""

@@ -1,9 +1,12 @@
-"""Per-slide feature-bag storage and full-bag datasets.
+"""Per-slide feature-bag storage and bag datasets.
 
-The port's own copy of ``FeatureBagStore``, ``BagDataset`` (full bags and
-their pad size; the subsampling batch assembly is not ported yet),
-``balanced_sample_weights`` and ``epoch_order`` from
-hipt_abmil_atec23_tpu/data/bags.py, with the reference's on-disk contracts
+The port's own copy of ``FeatureBagStore``, ``BagDataset`` (full bags,
+their pad size and the subsampled, padded batches of
+``Generic_MIL_Dataset.__getitem__``, reference: datasets/
+dataset_generic.py:448-578), ``balanced_sample_weights`` and
+``epoch_order`` from hipt_abmil_atec23_tpu/data/bags.py. Every host draw
+takes the numpy Generator in the JAX package's order, so one ``rng`` gives
+both packages the same batches. The reference's on-disk contracts hold
 so artifacts interoperate: ``feat_dir/h5_files/{slide}.h5`` with ``features`` [N,D] +
 ``coords`` [N,2] datasets and ``feat_dir/pt_files/{slide}.pt`` tensors
 (reference: extract_features_fp.py:240-255), plus ``npy_files/{slide}.npy``.
@@ -12,6 +15,7 @@ Either package's store reads what the other writes.
 from __future__ import annotations
 
 import os
+from dataclasses import dataclass
 from typing import Dict, Optional, Sequence
 
 import numpy as np
@@ -80,6 +84,15 @@ class FeatureBagStore:
             np.save(self.npy_path(slide_id), features)
 
 
+@dataclass
+class BagBatch:
+    """A static-shape batch of bags on the host."""
+    features: np.ndarray       # [B, N_pad, D] float32
+    mask: np.ndarray           # [B, N_pad] bool
+    labels: np.ndarray         # [B] int32
+    slide_indices: np.ndarray  # [B] int32 rows into the split
+
+
 class BagDataset:
     """The bags of a manifest split. ``store`` is anything with
     ``load_features(slide_id) -> [N, D]``; full bags are cached."""
@@ -106,6 +119,31 @@ class BagDataset:
             self._cache[slide_id] = feats
         return feats
 
+    def get_bag(self, idx: int, rng: np.random.Generator,
+                *, train: bool = True) -> np.ndarray:
+        """One bag as the reference's dataset item: a training draw may
+        swap in an augmentation variant ``{slide}aug{k}`` (reference:
+        random.randint(0, number_of_augs), 0 the original, :497-503); a bag
+        past ``max_patches_per_slide`` is subsampled, with replacement by
+        default (np.random.choice, :517-519); a training bag may get
+        Gaussian noise of ``perturb_variance`` (:521-525)."""
+        slide_id = self.slide_ids[idx]
+        cfg = self.cfg
+        if train and cfg.number_of_augs > 0:
+            aug = int(rng.integers(0, cfg.number_of_augs + 1))
+            if aug > 0:
+                slide_id = f"{slide_id}aug{aug}"
+        feats = self._full_bag(slide_id)
+        n = len(feats)
+        if cfg.max_patches_per_slide and cfg.max_patches_per_slide < n:
+            idxs = rng.choice(n, cfg.max_patches_per_slide,
+                              replace=cfg.sampling_with_replacement)
+            feats = feats[idxs]
+        if train and cfg.perturb_variance > 0:
+            feats = feats + rng.standard_normal(feats.shape).astype(
+                np.float32) * np.float32(cfg.perturb_variance)
+        return feats.astype(np.float32, copy=False)
+
     def pad_size(self) -> int:
         """Single static pad size: min(max bag length, max_patches_per_slide),
         augmentation variants ``{slide}augN`` included."""
@@ -118,6 +156,25 @@ class BagDataset:
         if cap:
             longest = min(longest, cap)
         return _round_up(longest, 8)
+
+    def make_batch(self, indices: Sequence[int], rng: np.random.Generator,
+                   n_pad: Optional[int] = None, *, train: bool = True
+                   ) -> BagBatch:
+        """The bags of ``indices`` (drawn in order) padded to ``n_pad``
+        (default: the longest, rounded up to 8) with their validity mask."""
+        bags = [self.get_bag(i, rng, train=train) for i in indices]
+        if n_pad is None:
+            n_pad = _round_up(max(len(b) for b in bags), 8)
+        d = bags[0].shape[1]
+        feats = np.zeros((len(bags), n_pad, d), np.float32)
+        mask = np.zeros((len(bags), n_pad), bool)
+        for j, b in enumerate(bags):
+            b = b[:n_pad]
+            feats[j, :len(b)] = b
+            mask[j, :len(b)] = True
+        return BagBatch(features=feats, mask=mask,
+                        labels=self.labels[list(indices)],
+                        slide_indices=np.asarray(indices, np.int32))
 
 
 def balanced_sample_weights(labels: np.ndarray, n_classes: int) -> np.ndarray:

@@ -1,1 +1,1 @@
-"""Encoder, slide stream and serving on the port."""
+"""Encoder, slide stream, serving, training and evaluation on the port."""

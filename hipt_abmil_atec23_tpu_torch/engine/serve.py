@@ -1,5 +1,5 @@
 """Serving: drain a watch folder of slides through tile -> HIPT_4K encode ->
-CLAM_SB, on the port.
+a MIL head (any ``build_mil_model`` head), on the port.
 
 Counterpart of hipt_abmil_atec23_tpu/engine/serve.py ``serve_once`` /
 ``serve_forever``. ServeConfig, discover, write_config and the journal
@@ -142,7 +142,7 @@ def _ensure_state(cfg: ServeConfig, state: ServeState) -> None:
     from hipt_abmil_atec23_tpu_torch.engine.encode import build_encoder
     from hipt_abmil_atec23_tpu_torch.models.abmil import build_mil_model
     from hipt_abmil_atec23_tpu_torch.models.convert import (
-        clam_state_dict_from_torch, load_torch_state_dict)
+        load_torch_state_dict, mil_state_dict_from_torch)
     state.device = resolve_device(state.device)
     if state.encoder is None:
         state.encoder = build_encoder(cfg.encoder, device=state.device)
@@ -150,7 +150,7 @@ def _ensure_state(cfg: ServeConfig, state: ServeState) -> None:
         if not cfg.ckpt_path.endswith(".pt"):
             raise NotImplementedError(
                 f"{cfg.ckpt_path!r}: the port loads reference-layout torch "
-                ".pt CLAM checkpoints; flax checkpoints are not ported yet "
+                ".pt MIL checkpoints; flax checkpoints are not ported yet "
                 "(ROADMAP §A.7)")
         model = build_mil_model(cfg.model.model_type,
                                 size_arg=cfg.model.model_size,
@@ -160,7 +160,7 @@ def _ensure_state(cfg: ServeConfig, state: ServeState) -> None:
                 f"MIL head {cfg.model.model_size!r} takes {model.size[0]}-d "
                 f"features, the encoder gives {state.encoder.feat_dim}")
         # reference eval loader key cleanup (utils/eval_utils.py:51-57)
-        model.load_state_dict(clam_state_dict_from_torch(
+        model.load_state_dict(mil_state_dict_from_torch(
             load_torch_state_dict(cfg.ckpt_path, checkpoint_key=None)))
         state.model = model.to(state.device).eval()
 
@@ -316,7 +316,11 @@ def serve_forever(cfg: ServeConfig, *, device, stop=None,
                   max_drains: Optional[int] = None) -> int:
     """Polling daemon: drain, sleep ``poll_s``, repeat. ``stop``: optional
     threading.Event; ``max_drains`` bounds the loop. Returns the number of
-    slides scored."""
+    slides scored. A head type ``build_mil_model`` does not know is refused
+    before the first drain: a failed drain is logged and polled again, so
+    it would never stop the daemon."""
+    from hipt_abmil_atec23_tpu_torch.models.abmil import check_model_type
+    check_model_type(cfg.model.model_type)
     state = ServeState(device=device)
     served = 0
     drains = 0

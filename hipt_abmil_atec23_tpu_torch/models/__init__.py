@@ -1,2 +1,2 @@
-"""PyTorch models of the port: DINO ViTs, HIPT_4K, CLAM_SB and the
+"""PyTorch models of the port: DINO ViTs, HIPT_4K, the MIL heads and the
 checkpoint bridges."""

@@ -12,6 +12,7 @@ __init__ imports flax), so the loader is ported here.
 """
 from __future__ import annotations
 
+import re
 from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
@@ -164,39 +165,108 @@ def load_dino_(model, sd256: Mapping[str, torch.Tensor],
 
 
 # --------------------------------------------------------------------------
-# CLAM_SB
+# MIL heads (CLAM_SB, CLAM_MB, MIL_fc, MIL_fc_mc)
 # --------------------------------------------------------------------------
 
-def clam_state_dict_from_torch(sd: Mapping[str, Any]
-                               ) -> Dict[str, torch.Tensor]:
-    """Reference-layout CLAM_SB checkpoint -> the port's CLAM_SB state
-    dict, with the reference's eval-time key cleanup (utils/
+# a Linear inside an indexed slot that moves with the dropout build: the
+# ungated scorer's last layer (attention_net.N.module.{2,3}) and MIL_fc's
+# instance classifier (classifier.{2,3})
+_SLOT = re.compile(r"^(attention_net\.\d\.module|classifier)\.([23])\.")
+
+
+def mil_state_dict_from_torch(sd: Mapping[str, Any], *,
+                              with_dropout: bool = False,
+                              keep_instance: bool = False
+                              ) -> Dict[str, torch.Tensor]:
+    """A reference-layout MIL checkpoint (CLAM_SB / CLAM_MB / MIL_fc /
+    MIL_fc_mc) -> the port's state dict for a build with or without
+    dropout, with the reference's eval-time key cleanup (utils/
     eval_utils.py:51-57): '.module' wrappers and 'instance_loss_fn' buffers
-    drop; the gated scorer of a dropout build (attention_net.3) moves to
-    attention_net.2; instance classifiers (training only) drop."""
+    drop. The scorer moves to attention_net.3 (dropout build) or .2, and
+    the slots behind a Dropout (the ungated scorer's last Linear,
+    MIL_fc's classifier) move with it. Instance classifiers drop unless
+    ``keep_instance`` (training resumes with them)."""
     sd = {k.replace(".module", ""): v for k, v in sd.items()
           if "instance_loss_fn" not in k}
     src = "attention_net.3." if any(
         k.startswith("attention_net.3.") for k in sd) else "attention_net.2."
+    dst = "attention_net.3." if with_dropout else "attention_net.2."
     out = {}
     for k, v in sd.items():
-        if k.startswith("instance_classifiers."):
+        if k.startswith("instance_classifiers.") and not keep_instance:
             continue
         if k.startswith(src):
-            k = "attention_net.2." + k[len(src):]
+            rest = k[len(src):]
+            # the ungated scorer's Sequential lost its '.module' above
+            k = dst + ("module." + rest if rest[0].isdigit() else rest)
+        k = _SLOT.sub(lambda m: f"{m.group(1)}.{3 if with_dropout else 2}.",
+                      k)
         out[k] = torch.as_tensor(v).detach().float().cpu()
     return out
+
+
+def clam_state_dict_from_torch(sd: Mapping[str, Any]
+                               ) -> Dict[str, torch.Tensor]:
+    """Reference-layout CLAM checkpoint -> the port's state dict for a
+    build without dropout, instance classifiers dropped (an inference
+    head): ``mil_state_dict_from_torch`` with its defaults."""
+    return mil_state_dict_from_torch(sd)
+
+
+def mil_state_dict_from_jax(params: Mapping, model_type: str = "clam_sb",
+                            n_classes: int = 2, *, with_dropout: bool = False
+                            ) -> Dict[str, torch.Tensor]:
+    """JAX MIL-head params (any ``build_mil_model`` head) -> the port's
+    state dict in the reference layout, the inverse of the JAX package's
+    clam_params_from_torch and the layout its clam_params_to_torch writes
+    (convert.py:177-207): ``instance_w`` [C, L, 2] to
+    ``instance_classifiers.{c}``, CLAM_MB's ``bag_w`` / ``bag_b`` to
+    ``classifiers.{c}``, MIL_fc's ``fc`` / ``classifier`` to
+    ``classifier.{0,2}`` and MIL_fc_mc's to ``fc.0`` / ``classifiers.{c}``.
+    ``with_dropout`` gives the layout of a dropout build."""
+    p = params["params"]
+    last = 3 if with_dropout else 2
+    per_class = lambda w, b, prefix: {
+        k: v for c in range(n_classes) for k, v in (
+            (f"{prefix}.{c}.weight", _t(w[c])[None, :]),
+            (f"{prefix}.{c}.bias", _t(b[c]).reshape(1)))}
+    if model_type == "mil":
+        if n_classes > 2:
+            sd = _linear_from_jax(p["fc"], "fc.0")
+            k, b = np.asarray(p["classifier"]["kernel"]), p["classifier"]["bias"]
+            sd.update(per_class(k.T, b, "classifiers"))
+            return sd
+        sd = _linear_from_jax(p["fc"], "classifier.0")
+        sd.update(_linear_from_jax(p["classifier"], f"classifier.{last}"))
+        return sd
+    if model_type not in ("clam_sb", "clam_mb"):
+        raise ValueError(f"unknown model_type {model_type!r}")
+    a = f"attention_net.{last}"
+    att = p["attention"]
+    sd = _linear_from_jax(p["fc"], "attention_net.0")
+    if "attn_b" in att:
+        sd.update(_linear_from_jax(att["attn_a"], f"{a}.attention_a.0"))
+        sd.update(_linear_from_jax(att["attn_b"], f"{a}.attention_b.0"))
+        sd.update(_linear_from_jax(att["attn_c"], f"{a}.attention_c"))
+    else:
+        sd.update(_linear_from_jax(att["attn_a"], f"{a}.module.0"))
+        sd.update(_linear_from_jax(att["attn_c"], f"{a}.module.{last}"))
+    if model_type == "clam_mb":
+        sd.update(per_class(p["bag_w"], p["bag_b"], "classifiers"))
+    else:
+        sd.update(_linear_from_jax(p["classifier"], "classifiers"))
+    if "instance_w" in p:
+        for c in range(n_classes):
+            sd[f"instance_classifiers.{c}.weight"] = \
+                _t(p["instance_w"][c]).t().contiguous()
+            sd[f"instance_classifiers.{c}.bias"] = _t(p["instance_b"][c])
+    return sd
 
 
 def clam_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     """JAX CLAM_SB params -> the port's CLAM_SB state dict: the reference
     layout that the JAX package's clam_params_to_torch writes
     (convert.py:177-207), single-branch and gated."""
-    p = params["params"]
-    att = p["attention"]
-    sd = _linear_from_jax(p["fc"], "attention_net.0")
-    sd.update(_linear_from_jax(att["attn_a"], "attention_net.2.attention_a.0"))
-    sd.update(_linear_from_jax(att["attn_b"], "attention_net.2.attention_b.0"))
-    sd.update(_linear_from_jax(att["attn_c"], "attention_net.2.attention_c"))
-    sd.update(_linear_from_jax(p["classifier"], "classifiers"))
-    return sd
+    return mil_state_dict_from_jax(params, "clam_sb",
+                                   params["params"]["classifier"]["bias"]
+                                   .shape[0])

@@ -59,7 +59,7 @@ def params_from_clam(model) -> GatedPoolParams:
 
 
 def _params_from_clam(model) -> GatedPoolParams:
-    fc, _, attn = model.attention_net
+    fc, attn = model.attention_net[0], model.attention_net[-1]
 
     def t(lin):
         return lin.weight.detach().float().t().contiguous()

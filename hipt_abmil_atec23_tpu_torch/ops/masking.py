@@ -33,3 +33,22 @@ def pad_bag(features: np.ndarray, n_pad: int):
     mask = np.zeros((n_pad,), dtype=bool)
     mask[:n] = True
     return out, mask
+
+
+def masked_top_k(scores: torch.Tensor, mask: torch.Tensor, k: int):
+    """Values, indices and validity of the k largest *valid* scores along
+    the last dim (the reference's ``torch.topk(A, k)`` on a ragged bag,
+    models/model_clam.py:120). With fewer than k valid entries the remaining
+    slots point at padded entries; callers weight by the returned validity.
+    Ties may come out in another order than ``lax.top_k``'s."""
+    mask = mask.to(torch.bool)
+    masked = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
+    values, indices = torch.topk(masked, k, dim=-1)
+    return values, indices, torch.gather(mask, -1, indices)
+
+
+def masked_bottom_k(scores: torch.Tensor, mask: torch.Tensor, k: int):
+    """The k smallest valid scores (the reference's ``torch.topk(-A, k)``,
+    models/model_clam.py:122)."""
+    values, indices, valid = masked_top_k(-scores, mask, k)
+    return -values, indices, valid

@@ -81,8 +81,8 @@ def sharded_clam_forward(model, bag_local: torch.Tensor,
                                       packed[:1], gp)
             return logits, _gather_rows(scores, group)[None, :]
 
-    fc, relu, attn = model.attention_net
-    h = relu(fc(bag_local))                                   # [n, L]
+    fc, attn = model.attention_net[0], model.attention_net[-1]
+    h = torch.relu(fc(bag_local))                             # [n, L]
     scores = attn(h)[:, 0]
     scores = torch.where(mask_local, scores, torch.full_like(scores, NEG_INF))
     # softmax(s - c) is invariant in c: the global max is only a shift for

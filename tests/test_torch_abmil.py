@@ -83,9 +83,12 @@ def test_masked_softmax_and_pad_bag_match_jax(rng):
 
 
 def test_only_gated_clam_sb_is_built():
+    """Every head type of the JAX package is built now (the name is from
+    when only the gated CLAM_SB was): clam_mb and the ungated clam_sb too;
+    an unknown type raises ValueError, as in the JAX package."""
     assert MIL_SIZE_DICT["hipt_smaller"] == [192, 16, 8]
     assert isinstance(build_mil_model("clam_sb"), CLAM_SB)
-    for kw in ({"model_type": "clam_mb"}, {"model_type": "clam_sb",
-                                           "gate": False}):
-        with pytest.raises(NotImplementedError):
-            build_mil_model(**kw)
+    assert build_mil_model("clam_mb").multi_branch
+    assert not build_mil_model("clam_sb", gate=False).gate
+    with pytest.raises(ValueError):
+        build_mil_model("clam_xl")

@@ -302,3 +302,27 @@ def test_staged_check_rejects_planted_faults(fault):
     else:
         with pytest.raises(SystemExit):
             chip_smoke.staged_check("plane", got, want)
+
+
+@pytest.mark.parametrize("fault", [None, "auc", "f1"])
+def test_bootstrap_reference_is_the_jax_chunk(fault):
+    """chip_smoke's numpy bootstrap (phase 10 (e)) computes the JAX
+    package's _bootstrap_chunk on one index matrix (ties and one-class
+    resamples included), and the 1e-6 check catches a chunk off in one
+    metric."""
+    import jax.numpy as jnp
+    from hipt_abmil_atec23_tpu.engine.metrics import _bootstrap_chunk
+    rng = np.random.default_rng(4)
+    labels = rng.integers(0, 2, 19).astype(np.int32)
+    probs = np.round(rng.dirichlet([1, 1], 19), 1).astype(np.float32)
+    idx = rng.integers(0, 19, (300, 19))
+    idx[0] = np.where(labels == 0)[0][0]
+    want = np.stack([np.asarray(v) for v in _bootstrap_chunk(
+        jnp.asarray(labels), jnp.asarray(probs),
+        jnp.asarray(probs.argmax(1).astype(np.int32)), jnp.asarray(idx), 2)])
+    got = chip_smoke.bootstrap_reference(labels, probs, idx)
+    if fault is not None:
+        got[("auc", "f1").index(fault), 5] += 1e-5
+    err = np.nanmax(np.abs(got - want))
+    assert np.array_equal(np.isnan(got), np.isnan(want))
+    assert (err <= chip_smoke.BOOT_TOL) == (fault is None)

@@ -396,6 +396,42 @@ def test_pool_kernel_refuses_a_head_past_shared_memory(l_dim, cuda_device):
         gap.gated_attention_pool_partial(bag, p)
 
 
+@pytest.mark.cuda
+def test_evaluate_fold_pools_every_full_bag_on_the_card(cuda_device,
+                                                        tmp_path):
+    """evaluate_fold's full-bag route on cuda (a gated clam_sb, bags not
+    subsampled) launches the pool kernel once per slide, and its
+    probabilities agree with the plain route (evaluate_split, the head's
+    own forward on the card) within 1e-4."""
+    from hipt_abmil_atec23_tpu_torch.data.bags import BagDataset
+    from hipt_abmil_atec23_tpu_torch.engine.checkpoint import (
+        ckpt_path, save_params)
+    from hipt_abmil_atec23_tpu_torch.engine.evaluate import evaluate_fold
+    from hipt_abmil_atec23_tpu_torch.engine.train import (
+        build_step_fns, evaluate_split)
+    from hipt_abmil_atec23_tpu_torch.utils.config import ExperimentConfig
+    rng = np.random.default_rng(0)
+    bags = {f"s{i}": rng.standard_normal((n, 1024), dtype=np.float32)
+            for i, n in enumerate((3000, 20_000, 517, 9000))}
+    store = type("Store", (), {"load_features": lambda self, s: bags[s]})()
+    cfg = ExperimentConfig.from_dict({
+        "task": {"n_classes": 2}, "bags": {"max_patches_per_slide": None},
+        "model": {"model_type": "clam_sb", "model_size": "small"}})
+    ds = BagDataset(list(bags), np.array([0, 1, 0, 1]), store, cfg.bags)
+    counts = np.array([2, 2])
+    fns = build_step_fns(cfg, counts, 8, 1024, device=cuda_device)
+    model = fns.init_params(torch.Generator().manual_seed(1))
+    save_params(ckpt_path(str(tmp_path), 0), model)
+    before = gap.gated_attention_pool.launches
+    res = evaluate_fold(cfg, 0, ds, counts, str(tmp_path),
+                        device=cuda_device)
+    assert gap.gated_attention_pool.launches - before == len(bags)
+    plain, _ = evaluate_split(fns, model, ds, ds.pad_size(),
+                              np.random.default_rng(0))
+    assert gap.gated_attention_pool.launches - before == len(bags)
+    np.testing.assert_allclose(res.test_probs, plain, rtol=0, atol=1e-4)
+
+
 @pytest.fixture(scope="module")
 def dct_slide():
     from hipt_abmil_atec23_tpu_torch.slideio.synthetic import (
