@@ -106,6 +106,22 @@ Phases (any failure exits non-zero, and no result line is printed):
      of 10k resamples against a numpy computation of the four metrics
      within 1e-6, wall time. One ``train_eval {...}`` line carries the
      numbers and the card.
+  11. explain (after phase 10): B.1 at [1024, 264, 384] (one region's
+     four shifted variants) against its plain version; counts zeroed;
+     (a) infer_attention on phase 3's bag of one plane slide (CLAM_SB
+     hipt_smaller) and on a seeded [100000, 1024] bag (CLAM_SB small):
+     one gated_pool launch each, scores within 1e-4 of the head's own
+     forward (relative to max |a_raw| on the big bag); sample_rois top-k;
+     draw_heatmap with the tissue mask on an ImageSlide of the slide's
+     pixels; (b) region_attention_cls_maps on one 4096^2 region's four
+     shifted variants (1024 tiles) in the JAX CLI's gallery configuration
+     (f32, no kernel flags: no launch) and in bf16 use_fused_block
+     (exactly 17 fused_block launches: 11 + 1 + 5), the fused maps held
+     against the f32 ones (cosine >= 0.99 and the CLS rows' mass on the
+     patch tokens within 1e-2, per map), then hierarchical_gallery
+     (concat_select) and patch_gallery. The raster steps need cv2 (else
+     one line says so and the device half runs alone). One ``explain
+     {...}`` line carries the times and the card.
   8. profile (only with --profile PATH): where one warm encode_stream's
      time goes, stage by stage (the colour and DCT decode stages through
      the kernels beside their plain chains), and torch.profiler kernel
@@ -141,7 +157,7 @@ from hipt_abmil_atec23_tpu_torch.models.abmil import (
     build_mil_model, init_reference_weights)
 from hipt_abmil_atec23_tpu_torch.models.hipt import (
     hipt_eval_normalize, make_hipt_encoder)
-from hipt_abmil_atec23_tpu_torch.models.vit import Block
+from hipt_abmil_atec23_tpu_torch.models.vit import VIT_CONFIGS, Block
 from hipt_abmil_atec23_tpu_torch.ops import flash_attention as fa
 from hipt_abmil_atec23_tpu_torch.ops import fused_mlp as fm
 from hipt_abmil_atec23_tpu_torch.ops import gated_attention_pool as gap
@@ -1922,7 +1938,7 @@ def _variant_check(what, got, want):
 def _vit256_encoders(dev, vit256_cfg):
     """The vit256 encoder (seeded bf16 weights, every block B.1) and its
     plain twin on the same weights."""
-    from hipt_abmil_atec23_tpu_torch.models.vit import VIT_CONFIGS, vit_small
+    from hipt_abmil_atec23_tpu_torch.models.vit import vit_small
     cfg = vit256_cfg or VIT_CONFIGS["vit_small"]
     ecfg = EncoderConfig(model_type="vit256", batch_size=VIT256_BATCH,
                          dtype="bfloat16")
@@ -2496,6 +2512,206 @@ def phase_train_eval(dev, smi, *, n_slides=60, bag_range=(40, 600),
     return {"launches": launches, "owned": {}}
 
 
+# ------------------------------------------------------------------ phase 11
+EXPLAIN_TOL = 1e-4       # infer_attention against the head's own a_raw
+MAP_COS = 0.99           # fused-block CLS maps against the f32 ones
+MAP_MASS = 1e-2          # relative CLS-row mass on the patch tokens, same
+EXPLAIN_BIG_BAG = (100_000, 1024)
+
+
+def _ms_since(dev, t0) -> float:
+    _sync(dev)
+    return (time.perf_counter() - t0) * 1e3
+
+
+def explain_scores(what, clam, bag, relative: bool) -> dict:
+    """infer_attention on one bag against the head's own forward on the
+    same device: the pool's launches in the call, its ms after a warm-up
+    call (bag to the card and scores back included), and max |d|
+    (relative to max |a_raw| when ``relative``)."""
+    from hipt_abmil_atec23_tpu_torch.explain.heatmaps import (
+        infer_attention, model_device)
+    dev = model_device(clam)
+    infer_attention(clam, bag)  # warm-up: the head's pool weights prepared
+    before = read_counts()["gated_pool"]
+    _sync(dev)
+    t0 = time.perf_counter()
+    scores = infer_attention(clam, bag)
+    ms = _ms_since(dev, t0)
+    launched = read_counts()["gated_pool"] - before
+    with torch.inference_mode():
+        want = clam(torch.as_tensor(bag).to(dev)).a_raw[0].float().cpu()
+    want = want.numpy()
+    scale = float(np.abs(want).max()) if relative else 1.0
+    err = float(np.abs(scores - want).max()) / scale
+    log(f"explain (a) infer_attention, {what}: {launched} gated_pool "
+        f"launches, {ms:.3f} ms; against the head's forward max |d|"
+        f"{' / max |a_raw|' if relative else ''} {err:.3g} (bound "
+        f"{EXPLAIN_TOL})")
+    if (scores.shape != want.shape or not np.isfinite(scores).all()
+            or launched != 1 or not err <= EXPLAIN_TOL):
+        raise SystemExit(f"explain: infer_attention on {what} did not launch "
+                         "the pool once or disagrees with the head")
+    return {"ms": ms, "err": err, "scores": scores}
+
+
+def map_agreement(got, want):
+    """(least cosine, largest relative difference of the mass) over the
+    rows of two sets of CLS maps, each map one row."""
+    got = got.reshape(-1, np.prod(got.shape[-2:])).astype(np.float64)
+    want = want.reshape(got.shape).astype(np.float64)
+    cos = (got * want).sum(1) / (np.linalg.norm(got, axis=1)
+                                 * np.linalg.norm(want, axis=1))
+    mass = np.abs(got.sum(1) - want.sum(1)) / want.sum(1)
+    return float(cos.min()), float(mass.max())
+
+
+def _timed_maps(dev, model, variants):
+    """region_attention_cls_maps twice (the first warms the path up);
+    the second call's maps, ms and launches by kernel."""
+    from hipt_abmil_atec23_tpu_torch.explain.hierarchical import (
+        region_attention_cls_maps)
+    region_attention_cls_maps(model, variants)
+    before = read_counts()
+    _sync(dev)
+    t0 = time.perf_counter()
+    maps = region_attention_cls_maps(model, variants)
+    ms = _ms_since(dev, t0)
+    return maps, ms, {k: v - before[k] for k, v in read_counts().items()}
+
+
+def phase_explain(dev, smi, rgb, coords, feats, clam, *, region=REGION,
+                  big_bag=EXPLAIN_BIG_BAG, widths=None) -> dict:
+    """The explain stage on the card: (a) a slide's MIL heatmap scores
+    through infer_attention (one pool launch) on phase 3's bag of one plane
+    slide and on a seeded [100000, 1024] bag, then the raster; (b) one
+    region's four shifted variants through region_attention_cls_maps in
+    the JAX CLI's gallery configuration (f32, no kernel flags) and in bf16
+    use_fused_block (17 fused_block launches), the maps held against each
+    other, then the galleries. The raster halves need cv2 (else one line
+    says so and they are skipped). ``rgb``: the plane slide's pixels;
+    ``coords`` / ``feats``: its regions and phase 3's features."""
+    from hipt_abmil_atec23_tpu_torch.explain import heatmaps as hm
+    from hipt_abmil_atec23_tpu_torch.explain import hierarchical as hier
+    widths = widths or {}
+    out = {"card": smi}
+    try:
+        import cv2  # noqa: F401
+        raster = True
+    except ImportError:
+        raster = False
+        log("explain: raster halves skipped, missing cv2")
+
+    # B.1 at the extraction's shape, before the counts are zeroed
+    n_tiles = 4 * (region // 256) ** 2
+    v256 = widths.get("vit256_cfg", VIT_CONFIGS["vit_small"])
+    d, heads = v256.embed_dim, v256.num_heads
+    g = torch.Generator().manual_seed(21)
+    blk = _random_block(d, heads, g, dev)
+    x = torch.randn(n_tiles, 264, d, generator=g).to(dev, torch.bfloat16)
+    with torch.inference_mode():
+        _check("fused_block", f"[{n_tiles},264,{d}] bf16 (region_attention), "
+               "n_valid 257", fused_vit_block(x, blk, num_heads=heads,
+                                              n_valid=257),
+               fused_vit_block_reference(x, blk, num_heads=heads,
+                                         n_valid=257), BLOCK_TOL)
+        if dev.type == "cuda":
+            out["block_ms"] = gpu_timer(lambda: fused_vit_block(
+                x, blk, num_heads=heads, n_valid=257))
+            log(f"fused_block [{n_tiles},264,{d}]: kernel "
+                f"{out['block_ms']:.4f} ms")
+    del blk, x
+
+    zero_counts()
+    # (a) the MIL heatmap: phase 3's bag, then a bag at ResNet width
+    sa = explain_scores(f"phase 3 bag [{len(feats)}, {feats.shape[1]}]",
+                        clam, feats, relative=False)
+    n, d_in = big_bag
+    big = torch.randn(n, d_in, generator=torch.Generator().manual_seed(22))
+    sb = explain_scores(f"seeded bag [{n}, {d_in}], CLAM_SB small",
+                        _reference_clam("small", 23, dev), big.to(dev),
+                        relative=True)
+    out.update(scores_ms=sa["ms"], scores_err=sa["err"],
+               big_scores_ms=sb["ms"], big_scores_err=sb["err"])
+    del big
+    rois = hm.sample_rois(coords, sa["scores"], k=2)
+    if set(rois["sampled_ids"]) != set(np.argsort(-sa["scores"])[:2]):
+        raise SystemExit("explain: sample_rois top-k is not the top scores")
+    if raster:
+        from hipt_abmil_atec23_tpu_torch.slideio.reader import ImageSlide
+        from hipt_abmil_atec23_tpu_torch.slideio.seg import segment_tissue
+        t0 = time.perf_counter()
+        slide = ImageSlide(rgb)
+        seg = segment_tissue(slide, SegConfig(use_otsu=True, a_t=1))
+        img = hm.draw_heatmap(slide, coords, sa["scores"], region, seg=seg)
+        out["raster_ms"] = (time.perf_counter() - t0) * 1e3
+        w, h = slide.level_dimensions[slide.get_best_level_for_downsample(32)]
+        if img.shape != (h, w, 3) or img.dtype != np.uint8:
+            raise SystemExit(f"explain: heatmap {img.shape} {img.dtype}")
+        log(f"explain (a) raster: ImageSlide + segment_tissue + draw_heatmap "
+            f"with the seg mask, {img.shape[1]}x{img.shape[0]}: "
+            f"{out['raster_ms']:.1f} ms")
+
+    # (b) hierarchical: one region, four shifted variants, two configurations
+    reg = np.ascontiguousarray(rgb[:region, :region])
+    variants = np.stack([hier.shift_pad(reg, k * 128) for k in range(4)])
+    f32 = make_hipt_encoder(torch.float32,
+                            generator=torch.Generator().manual_seed(0),
+                            **widths)
+    fused = make_hipt_encoder(torch.bfloat16, use_fused_block=True, **widths)
+    fused.load_state_dict(f32.state_dict())
+    f32, fused = f32.to(dev).eval(), fused.to(dev).eval()
+    # B.1 calls of one fused region_attention: ViT-256's prefix, its last
+    # block for the CLS, ViT-4K's prefix (11 + 1 + 5 = 17 at full depth)
+    want_blocks = len(fused.vit256.blocks) + len(fused.vit4k.blocks) - 1
+    (w256, w4k), f32_ms, f32_counts = _timed_maps(dev, f32, variants)
+    (g256, g4k), fused_ms, fused_counts = _timed_maps(dev, fused, variants)
+    if any(f32_counts.values()):
+        raise SystemExit(f"explain: the f32 configuration launched "
+                         f"{f32_counts}")
+    blocks = fused_counts["fused_block"]
+    cos256, mass256 = map_agreement(g256, w256)
+    cos4k, mass4k = map_agreement(g4k, w4k)
+    log(f"explain (b) region_attention_cls_maps, one {region}^2 region x 4 "
+        f"shifts ({n_tiles} tiles): f32 {f32_ms:.1f} ms, "
+        f"bf16 use_fused_block {fused_ms:.1f} ms ({blocks} fused_block "
+        f"launches, want {want_blocks}); fused against f32 maps: "
+        f"ViT-256 cosine >= {cos256:.6f}, mass |d| <= {mass256:.3g}; ViT-4K "
+        f"cosine >= {cos4k:.6f}, mass |d| <= {mass4k:.3g} (bounds "
+        f"{MAP_COS}, {MAP_MASS})")
+    ok_maps = all(np.isfinite(m).all() for m in (w256, w4k, g256, g4k))
+    if (blocks != want_blocks or not ok_maps
+            or min(cos256, cos4k) < MAP_COS
+            or max(mass256, mass4k) > MAP_MASS):
+        raise SystemExit("explain: region_attention disagrees between the "
+                         "configurations or missed a block launch")
+    out.update(extract_f32_ms=f32_ms, extract_fused_ms=fused_ms,
+               fused_block_launches=blocks, cos256=cos256, cos4k=cos4k,
+               mass256=mass256, mass4k=mass4k)
+    if raster:
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            # the default heads (4k 0 and 5, 256 2) where the widths have them
+            h4k = f32.vit4k.cfg.num_heads
+            h256 = f32.vit256.cfg.num_heads
+            files = hier.hierarchical_gallery(
+                reg, f32, tmp, "r0", mode="concat_select",
+                select_4k=(0, h4k - 1), select_256=(min(2, h256 - 1),))
+            files += hier.patch_gallery(reg[:256, :256], f32.vit256, tmp,
+                                        "p0", mode="concat")
+            wall = _ms_since(dev, t0)
+            if len(files) != 3 or not all(map(os.path.exists, files)):
+                raise SystemExit(f"explain: galleries wrote {files}")
+        out.update(gallery_ms=wall, gallery_raster_ms=wall - f32_ms)
+        log(f"explain (b) hierarchical_gallery(concat_select) + "
+            f"patch_gallery(concat) with the f32 model: {wall:.1f} ms, of "
+            f"which raster ~{wall - f32_ms:.1f} ms (wall less one f32 "
+            "extraction)")
+    launches = read_counts()
+    log("explain " + json.dumps(out))
+    return {"launches": launches, "owned": {}}
+
+
 def set_launches(records, paths) -> None:
     """Each record's launches from the run of the path that owns its kernel
     (``paths``: name -> a phase's result, whose "owned" holds the counts
@@ -2541,13 +2757,16 @@ def main() -> int:
         log(f"encode stage, file-bound part: skipped, missing {missing}")
     else:
         phase_files(dev, res["encoder"])
+    xres = phase_explain(dev, smi, planes[0][0], res["jobs"][0][2],
+                         res["feats"]["mem0"], res["clam"])
     if args.profile:
         phase_profile(dev, res["encoder"], pres["encoder"], planes[0],
                       dct_slides[0], args.profile)
     records = kres["records"]
     set_launches(records, {**kres["paths"], "plane": res, "dct": dres,
                            "per_op": pres, "sharded": sres,
-                           "encode_stage": eres, "train_eval": tres})
+                           "encode_stage": eres, "train_eval": tres,
+                           "explain": xres})
     records["fused_block"].update(
         launches_vit256=eres["launches_vit256"],
         ms_256x264x384=eres.get("block_ms_vit256"))

@@ -1,20 +1,22 @@
 """The port's command line: the tile, encode, train, eval, splits,
-bootstrap, count and serve stages.
+bootstrap, count, serve and heatmap stages.
 
     python -m hipt_abmil_atec23_tpu_torch.cli <tile|encode|train|eval|splits|
-                                               bootstrap|count|serve> [flags]
+                                               bootstrap|count|serve|heatmap>
+                                               [flags]
 
 Each subcommand takes the JAX package's flags (hipt_abmil_atec23_tpu/cli.py)
 and writes the same artifacts, so either package reads what the other wrote:
 coords h5s, masks and stitches under the tile stage's save_dir, feature bags
 in the reference layout under feat_dir, split CSVs, fold CSVs, summaries and
-the experiment settings, the serve journal and results. Checkpoints are the
-reference's ``s_{fold}_checkpoint.pt``. ``--device`` picks the card
-(``cuda``, the default) or the CPU (``cpu``). Choices the port does not have
-yet (the ResNet and LeViT encoders, flax MIL checkpoints, tuning, fold- and
+the experiment settings, the serve journal and results, heatmaps,
+blockmaps, ROIs and attention galleries. Checkpoints are the reference's
+``s_{fold}_checkpoint.pt``. ``--device`` picks the card (``cuda``, the
+default) or the CPU (``cpu``). Choices the port does not have yet (the
+ResNet and LeViT encoders, flax MIL checkpoints, tuning, fold- and
 trial-parallel training, DRAS sampling, online encoding) raise an error
-that names the ROADMAP item that ports them; heatmap, knn, export and
-parity are not ported yet.
+that names the ROADMAP item that ports them; knn, export and parity are
+not ported yet.
 """
 from __future__ import annotations
 
@@ -619,18 +621,194 @@ def _cmd_serve(a):
         print(f"[serve] served {n} slides")
 
 
+def _add_heatmap(sub):
+    p = sub.add_parser("heatmap", help="attention heatmaps "
+                       "(reference: create_heatmaps.py)")
+    p.add_argument("--config", default=None,
+                   help="JSON job config: batch mode over many slides "
+                        "(explain/driver.py); other flags but --device "
+                        "ignored")
+    p.add_argument("--confirm", action="store_true",
+                   help="print the resolved config and ask Y/N before "
+                        "running (reference: create_heatmaps.py:85-101; "
+                        "off by default so batch jobs stay unattended)")
+    p.add_argument("--slide", default=None)
+    p.add_argument("--coords_h5", default=None)
+    p.add_argument("--features", default=None,
+                   help="precomputed features (.pt/.h5/.npy); if absent, "
+                   "encode on the fly")
+    p.add_argument("--ckpt", default=None,
+                   help="MIL checkpoint (reference-layout torch .pt)")
+    p.add_argument("--model_type", default="clam_sb")
+    p.add_argument("--model_size", default="hipt_smaller")
+    p.add_argument("--encoder", default="HIPT_4K")
+    p.add_argument("--save_dir", default=None)
+    p.add_argument("--cmap", default="coolwarm")
+    p.add_argument("--alpha", type=float, default=0.4)
+    p.add_argument("--n_classes", type=int, default=2)
+    p.add_argument("--sample_topk", type=int, default=8)
+    # hierarchical ViT-attention galleries over the top ROIs (reference:
+    # HIPT_4K/hipt_heatmap_utils.py:347-664, hipt_4k.py:167-305)
+    p.add_argument("--hierarchical", action="store_true",
+                   help="shift-averaged hierarchical heatmap galleries for "
+                        "the top --hier_regions ROIs")
+    p.add_argument("--hier_mode", default="concat_select",
+                   choices=["indiv", "concat", "concat_select"])
+    p.add_argument("--hier_regions", type=int, default=2)
+    p.add_argument("--patch_gallery", action="store_true",
+                   help="ViT-256 patch-level attention galleries for the "
+                        "top ROI's patches (hipt_heatmap_utils.py:158-294)")
+    p.add_argument("--vit256_ckpt", default=None)
+    p.add_argument("--vit4k_ckpt", default=None)
+    _add_device(p)
+
+
+def _confirm(job) -> None:
+    """Print every (nested) config entry, then gate on Y/N (reference:
+    create_heatmaps.py:85-101)."""
+    import dataclasses
+    for key, value in dataclasses.asdict(job).items():
+        if isinstance(value, dict):
+            print("\n" + key)
+            for vk, vv in value.items():
+                print(f"{vk} : {vv}")
+        else:
+            print(f"\n{key} : {value}")
+    decision = input("Continue? Y/N ")
+    if decision in ("Y", "y", "Yes", "yes"):
+        return
+    if decision in ("N", "n", "No", "NO"):
+        raise SystemExit(0)
+    raise NotImplementedError(decision)
+
+
+def _read_features(path: str) -> np.ndarray:
+    if path.endswith(".pt"):
+        from hipt_abmil_atec23_tpu_torch.data.bags import _load_pt
+        return _load_pt(path)
+    if path.endswith(".npy"):
+        return np.load(path)
+    import h5py
+    with h5py.File(path) as f:
+        return np.asarray(f["features"])
+
+
+def _cmd_heatmap(a):
+    if a.config:
+        # config-driven batch mode (reference: create_heatmaps.py YAML)
+        from hipt_abmil_atec23_tpu_torch.explain.driver import (
+            HeatmapJobConfig, run_heatmap_job)
+        job = HeatmapJobConfig.load(a.config)
+        if a.confirm:
+            _confirm(job)
+        run_heatmap_job(job, device=a.device)
+        return
+    for req in ("slide", "coords_h5", "ckpt", "save_dir"):
+        if getattr(a, req) is None:
+            raise SystemExit(f"--{req} is required without --config")
+    import cv2
+    from hipt_abmil_atec23_tpu_torch.device import resolve_device
+    from hipt_abmil_atec23_tpu_torch.explain.driver import (
+        load_mil_head, require_pt)
+    from hipt_abmil_atec23_tpu_torch.explain.heatmaps import (
+        draw_heatmap, infer_attention, sample_rois, save_blockmap)
+    from hipt_abmil_atec23_tpu_torch.slideio.patching import load_coords_h5
+    from hipt_abmil_atec23_tpu_torch.slideio.reader import open_slide
+    from hipt_abmil_atec23_tpu_torch.utils.config import ModelConfig
+
+    require_pt(a.ckpt)
+    device = resolve_device(a.device)
+    os.makedirs(a.save_dir, exist_ok=True)
+    coords, attrs = load_coords_h5(a.coords_h5)
+    patch_size = int(attrs["patch_size"])
+    patch_level = int(attrs.get("patch_level", 0))
+    slide = open_slide(a.slide)
+    sid = os.path.splitext(os.path.basename(a.slide))[0]
+
+    if a.features:
+        feats = _read_features(a.features)
+    else:
+        from hipt_abmil_atec23_tpu_torch.engine.encode import (
+            build_encoder, encode_slide)
+        from hipt_abmil_atec23_tpu_torch.utils.config import EncoderConfig
+        enc = build_encoder(EncoderConfig(model_type=a.encoder),
+                            device=device)
+        feats = encode_slide(slide, coords, enc, patch_level=patch_level,
+                             region_size=patch_size)
+
+    model = load_mil_head(a.ckpt, ModelConfig(model_type=a.model_type,
+                                              model_size=a.model_size),
+                          a.n_classes, feats.shape[1], device)
+    scores = infer_attention(model, feats)
+    save_blockmap(os.path.join(a.save_dir, f"{sid}_blockmap.h5"),
+                  coords, scores)
+    hm = draw_heatmap(slide, coords, scores, patch_size,
+                      patch_level=patch_level, cmap=a.cmap, alpha=a.alpha)
+    cv2.imwrite(os.path.join(a.save_dir, f"{sid}_heatmap.jpg"),
+                cv2.cvtColor(hm, cv2.COLOR_RGB2BGR))
+    rois = sample_rois(coords, scores, k=a.sample_topk)
+    patches = slide.read_regions(rois["sampled_coords"], patch_level,
+                                 (patch_size, patch_size))
+    for j, (patch, score) in enumerate(zip(patches, rois["sampled_scores"])):
+        cv2.imwrite(os.path.join(
+            a.save_dir, f"{sid}_roi{j}_{score:.3f}.png"),
+            cv2.cvtColor(patch, cv2.COLOR_RGB2BGR))
+    if a.hierarchical or a.patch_gallery:
+        _heatmap_galleries(a, device, slide, sid, rois, patch_size,
+                           patch_level)
+    slide.close()
+    print(f"[heatmap] wrote heatmap + blockmap + {len(patches)} ROIs "
+          f"to {a.save_dir}")
+
+
+def _heatmap_galleries(a, device, slide, sid, rois, patch_size,
+                       patch_level):
+    """Hierarchical / patch ViT-attention galleries for the top ROI regions,
+    from HIPT_4K in f32 with no kernel flags (as the JAX CLI builds it):
+    the DINO checkpoints when both are given, else seeded random weights."""
+    import torch
+    from hipt_abmil_atec23_tpu_torch.explain.hierarchical import (
+        hierarchical_gallery, patch_gallery)
+    from hipt_abmil_atec23_tpu_torch.models.convert import (
+        load_dino_, load_torch_state_dict)
+    from hipt_abmil_atec23_tpu_torch.models.hipt import (
+        center_crop_multiple, make_hipt_encoder)
+
+    hipt = make_hipt_encoder(torch.float32,
+                             generator=torch.Generator().manual_seed(0))
+    if a.vit256_ckpt and a.vit4k_ckpt:
+        load_dino_(hipt, load_torch_state_dict(a.vit256_ckpt),
+                   load_torch_state_dict(a.vit4k_ckpt))
+    hipt = hipt.to(device).eval()
+    out_dir = os.path.join(a.save_dir, "galleries")
+    k = min(a.hier_regions, len(rois["sampled_coords"]))
+    regions = slide.read_regions(rois["sampled_coords"][:k], patch_level,
+                                 (patch_size, patch_size))
+    for j, reg in enumerate(regions):
+        reg = center_crop_multiple(reg, 256)
+        if a.hierarchical:
+            hierarchical_gallery(reg, hipt, out_dir, f"{sid}_roi{j}",
+                                 mode=a.hier_mode, alpha=a.alpha)
+        if a.patch_gallery and j == 0:
+            patch_gallery(reg[:256, :256], hipt.vit256, out_dir,
+                          f"{sid}_roi{j}_patch", mode="concat",
+                          alpha=a.alpha)
+    print(f"[heatmap] galleries for {k} ROI regions -> {out_dir}")
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     parser = argparse.ArgumentParser(
         prog="hipt_abmil_atec23_tpu_torch",
         description="WSI MIL pipeline on PyTorch + CUDA")
     sub = parser.add_subparsers(dest="cmd", required=True)
     for add in (_add_tile, _add_encode, _add_train, _add_eval, _add_splits,
-                _add_bootstrap, _add_count, _add_serve):
+                _add_bootstrap, _add_count, _add_serve, _add_heatmap):
         add(sub)
     a = parser.parse_args(argv)
     {"tile": _cmd_tile, "encode": _cmd_encode, "train": _cmd_train,
      "eval": _cmd_eval, "splits": _cmd_splits, "bootstrap": _cmd_bootstrap,
-     "count": _cmd_count, "serve": _cmd_serve}[a.cmd](a)
+     "count": _cmd_count, "serve": _cmd_serve,
+     "heatmap": _cmd_heatmap}[a.cmd](a)
     return 0
 
 

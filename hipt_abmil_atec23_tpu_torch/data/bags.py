@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import os
 from dataclasses import dataclass
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -65,6 +65,14 @@ class FeatureBagStore:
             return np.load(npy).astype(np.float32)
         raise FileNotFoundError(f"no feature bag for slide {slide_id!r} "
                                 f"under {self.feat_dir}")
+
+    def load_with_coords(self, slide_id: str
+                         ) -> Tuple[np.ndarray, np.ndarray]:
+        """Features [N, D] f32 and coords [N, 2] from the slide's h5."""
+        import h5py
+        with h5py.File(self.h5_path(slide_id), "r") as f:
+            return (np.asarray(f["features"], dtype=np.float32),
+                    np.asarray(f["coords"]))
 
     def save(self, slide_id: str, features: np.ndarray,
              coords: Optional[np.ndarray] = None,

@@ -1,7 +1,8 @@
 """HIPT_4K: hierarchical ViT-256 -> ViT-4K region encoder.
 
 Counterpart of hipt_abmil_atec23_tpu/models/hipt.py (``__call__``, the
-cls4k features, and ``asset_dict``): every 256 x 256 tile of a region is
+cls4k features, ``asset_dict``, ``region_attention`` and
+``center_crop_multiple``): every 256 x 256 tile of a region is
 one image of a ViT-256 batch, the CLS grid reshapes to [R, gh, gw, 384] on
 the device, and ViT-4K turns it into one 192-d feature per region
 (reference: HIPT_4K/hipt_4k.py:48-76, without its two-GPU host bounce).
@@ -9,8 +10,9 @@ the device, and ViT-4K turns it into one 192-d feature per region
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn as nn
 
@@ -23,6 +25,15 @@ def hipt_eval_normalize(x_uint8: torch.Tensor) -> torch.Tensor:
     """HIPT eval transform: ToTensor + Normalize(0.5, 0.5)
     (reference: HIPT_4K/hipt_model_utils.py:113-118) => x/127.5 - 1."""
     return x_uint8.float() / 127.5 - 1.0
+
+
+def center_crop_multiple(x: np.ndarray, multiple: int = 256) -> np.ndarray:
+    """Host-side: center-crop H and W ([..., H, W, C]) down to multiples of
+    ``multiple`` (reference: prepare_img_tensor, hipt_4k.py:308-330)."""
+    h, w = x.shape[-3], x.shape[-2]
+    nh, nw = (h // multiple) * multiple, (w // multiple) * multiple
+    top, left = (h - nh) // 2, (w - nw) // 2
+    return x[..., top:top + nh, left:left + nw, :]
 
 
 class HIPT4K(nn.Module):
@@ -44,15 +55,21 @@ class HIPT4K(nn.Module):
         not cast again."""
         return self.vit256.cfg.dtype
 
-    def _tile_cls(self, regions: torch.Tensor) -> torch.Tensor:
-        """ViT-256 CLS of every 256 x 256 tile: [R, gh, gw, 384] f32."""
+    def _tiles(self, regions: torch.Tensor) -> torch.Tensor:
+        """Every 256 x 256 tile of the regions, row-major per region, in
+        the compute dtype: [R * gh * gw, 256, 256, 3]."""
         r, h, w, c = regions.shape
         gh, gw = h // 256, w // 256
         # cast first: the tile gather below then moves compute-dtype bytes
         x = regions.to(self.vit256.cfg.dtype)
         tiles = x.reshape(r, gh, 256, gw, 256, c).permute(0, 1, 3, 2, 4, 5)
-        cls256 = self.vit256(tiles.reshape(r * gh * gw, 256, 256, c))
-        return cls256.reshape(r, gh, gw, -1)
+        return tiles.reshape(r * gh * gw, 256, 256, c)
+
+    def _tile_cls(self, regions: torch.Tensor) -> torch.Tensor:
+        """ViT-256 CLS of every 256 x 256 tile: [R, gh, gw, 384] f32."""
+        r, h, w, _ = regions.shape
+        cls256 = self.vit256(self._tiles(regions))
+        return cls256.reshape(r, h // 256, w // 256, -1)
 
     def forward(self, regions: torch.Tensor) -> torch.Tensor:
         return self.vit4k(self._tile_cls(regions))
@@ -71,6 +88,27 @@ class HIPT4K(nn.Module):
                 "features_mean256": mean256,
                 "features_cls4k": cls4k,
                 "features_mean256_cls4k": torch.cat([mean256, cls4k], -1)}
+
+    def region_attention(self, regions: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Both levels' last-block attention probabilities for hierarchical
+        heatmaps (reference: _get_region_attention_scores, hipt_4k.py:
+        121-164): (attn256 [R*gh*gw, heads, 257, 257], attn4k [R, heads,
+        1 + gh*gw, 1 + gh*gw]), in the compute dtype.
+
+        The JAX package walks ViT-256 twice over the tiles, once for the
+        probabilities and once for the CLS grid. Their prefix before the
+        last block is one computation, so it runs once here; the last
+        block then runs twice: its exact attention for the probabilities,
+        and as configured (the fused block kernel under use_fused_block)
+        for the CLS that ViT-4K reads."""
+        r, h, w, _ = regions.shape
+        v256 = self.vit256
+        tok, n = v256.prefix(v256.prepare_tokens(self._tiles(regions)), -1)
+        last = v256.blocks[-1]
+        attn256 = last.attention_probs(tok[:, :n])
+        grid = v256.cls(last(tok, n)).reshape(r, h // 256, w // 256, -1)
+        return attn256, self.vit4k.get_last_selfattention(grid)
 
 
 def make_hipt_encoder(dtype: torch.dtype = torch.bfloat16,

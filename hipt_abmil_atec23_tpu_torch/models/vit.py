@@ -1,5 +1,6 @@
 """DINO Vision Transformers: ViT-256 (patch encoder) and ViT-4K (region
-encoder), forward only.
+encoder), inference only: the CLS feature, the last block's attention
+probabilities and the intermediate layers.
 
 Counterpart of hipt_abmil_atec23_tpu/models/vit.py, with its three block
 configurations (the JAX defaults: all off):
@@ -19,6 +20,10 @@ configurations (the JAX defaults: all off):
 
 Kernel ops run their CUDA kernels on a CUDA tensor and their plain versions
 on a CPU tensor. The final LayerNorm reads the unpadded CLS token in f32.
+``get_last_selfattention`` walks the blocks before the last one as
+configured, then takes the last block's probabilities by the exact path
+(no kernel; softmax in f32, rounded to ``dtype``), as the JAX package's
+``return_attn`` does.
 
 Parameters keep the DINO checkpoint layout (``patch_embed.proj``,
 ``cls_token``, ``pos_embed``, ``blocks.{i}.norm1`` / ``.attn.qkv`` /
@@ -31,7 +36,7 @@ bias, the pos-embed rounded to ``dtype``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -110,19 +115,33 @@ class Attention(nn.Module):
         self.qkv = nn.Linear(dim, 3 * dim)
         self.proj = nn.Linear(dim, dim)
 
+    def _qkv(self, x: torch.Tensor):
+        b, n, c = x.shape
+        h = self.num_heads
+        qkv = _dense(x, self.qkv, self.dtype).view(b, n, 3, h, c // h)
+        return qkv.permute(2, 0, 3, 1, 4)                 # [3, b, h, n, hd]
+
+    def _probs(self, q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+        s = (q.float() @ k.float().transpose(-1, -2)) * q.shape[-1] ** -0.5
+        return torch.softmax(s, dim=-1).to(self.dtype)
+
+    def probs(self, x: torch.Tensor) -> torch.Tensor:
+        """The exact path's attention probabilities [b, h, n, n]: softmax
+        in f32, rounded to the compute dtype (JAX vit.py:190), whatever
+        ``use_flash`` says."""
+        q, k, _ = self._qkv(x)
+        return self._probs(q, k)
+
     def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
         b, n, c = x.shape
         h = self.num_heads
         hd = c // h
-        qkv = _dense(x, self.qkv, self.dtype).view(b, n, 3, h, hd)
-        q, k, v = qkv.permute(2, 0, 3, 1, 4)              # [b, h, n, hd]
+        q, k, v = self._qkv(x)
         if self.use_flash:
             out = attention(*(t.reshape(b * h, n, hd) for t in (q, k, v)),
                             plain=plain).view(b, h, n, hd)
         else:
-            s = (q.float() @ k.float().transpose(-1, -2)) * hd ** -0.5
-            p = torch.softmax(s, dim=-1).to(self.dtype)
-            out = (p.float() @ v.float()).to(self.dtype)
+            out = (self._probs(q, k).float() @ v.float()).to(self.dtype)
         out = out.permute(0, 2, 1, 3).reshape(b, n, c)
         return _dense(out, self.proj, self.dtype)
 
@@ -199,6 +218,13 @@ class Block(nn.Module):
                                        eps=self.eps)
         return fused_ln_mlp_residual(*args, eps=self.eps)
 
+    def attention_probs(self, x: torch.Tensor) -> torch.Tensor:
+        """The block's attention probabilities on unpadded tokens x, by the
+        exact LN -> Attention path whatever the block's configuration, as
+        the JAX Block computes them for ``return_attn`` (vit.py:225): never
+        a kernel. The MLP half cannot change them, so it does not run."""
+        return self.attn.probs(_ln_f32(x, self.norm1))
+
 
 def _pad_tokens(tok: torch.Tensor) -> torch.Tensor:
     """Zero-pad the token axis to a multiple of 8, once per network."""
@@ -225,8 +251,9 @@ class _PosEmbedCache:
 
 
 class _Encoder(nn.Module):
-    """Shared walk of both ViTs: the blocks (on tokens padded once, under
-    ``use_fused_block``), then LN of the CLS."""
+    """The block walk both ViTs share, with ``forward`` (LN of the CLS after
+    every block), ``get_last_selfattention`` and ``get_intermediate_layers``
+    on it; subclasses give ``prepare_tokens``."""
 
     def _init_blocks(self, dim, depth, cfg):
         self.blocks = nn.ModuleList(
@@ -238,17 +265,52 @@ class _Encoder(nn.Module):
         self.norm = nn.LayerNorm(dim, eps=cfg.ln_eps)
         self._pe = _PosEmbedCache()
 
-    def _run(self, tok: torch.Tensor) -> torch.Tensor:
+    def walk(self, tok: torch.Tensor, stop: Optional[int] = None
+             ) -> Iterator[Tuple[torch.Tensor, int]]:
+        """(tokens, n) on entry and after each of ``blocks[:stop]``, n the
+        count of valid tokens. Under ``use_fused_block`` the tokens pad
+        once, here, to a multiple of 8 and stay padded (slice ``[:, :n]``),
+        and every block masks the padded keys by n; otherwise a block
+        ignores n."""
+        n = tok.shape[1]
         if self.cfg.use_fused_block:
-            n = tok.shape[1]
             tok = _pad_tokens(tok)
-            for blk in self.blocks:
-                tok = blk(tok, n)
-        else:
-            for blk in self.blocks:
-                tok = blk(tok)
-        # LN is per token, so normalising the CLS alone equals LN-then-slice
+        yield tok, n
+        for blk in self.blocks[:stop]:
+            tok = blk(tok, n)
+            yield tok, n
+
+    def prefix(self, tok: torch.Tensor, stop: Optional[int] = None
+               ) -> Tuple[torch.Tensor, int]:
+        """The last (tokens, n) of ``walk``."""
+        for out in self.walk(tok, stop):
+            pass
+        return out
+
+    def cls(self, tok: torch.Tensor) -> torch.Tensor:
+        """LN of the CLS token, f32; LN is per token, so normalising the CLS
+        alone equals LN-then-slice."""
         return _ln_f32(tok[:, 0], self.norm)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.cls(self.prefix(self.prepare_tokens(x))[0])
+
+    def get_last_selfattention(self, x: torch.Tensor) -> torch.Tensor:
+        """The last block's attention probabilities [B, heads, n, n] over
+        the unpadded tokens (reference: vision_transformer.py:255-262),
+        after the configured walk of the blocks before it."""
+        tok, n = self.prefix(self.prepare_tokens(x), -1)
+        return self.blocks[-1].attention_probs(tok[:, :n])
+
+    def get_intermediate_layers(self, x: torch.Tensor, n: int = 1
+                                ) -> List[torch.Tensor]:
+        """LN of every unpadded token after each of the last ``n`` blocks,
+        f32."""
+        steps = self.walk(self.prepare_tokens(x))
+        next(steps)
+        depth = len(self.blocks)
+        return [_ln_f32(tok[:, :nv], self.norm)
+                for i, (tok, nv) in enumerate(steps) if depth - i <= n]
 
 
 class _PatchEmbed(nn.Module):
@@ -280,7 +342,8 @@ class VisionTransformer(_Encoder):
         cast again."""
         return self.cfg.dtype
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def prepare_tokens(self, x: torch.Tensor) -> torch.Tensor:
+        """Patch embedding, CLS and pos-embed: [B, 1 + gh*gw, D] f32."""
         cfg = self.cfg
         dt = cfg.dtype
         b, h, w, c = x.shape
@@ -296,7 +359,7 @@ class VisionTransformer(_Encoder):
         cls = self.cls_token.to(dt).float().expand(b, -1, -1)
         tok = torch.cat([cls, tok], dim=1)
         tok = tok + self._pe.get(self.pos_embed, gh, gw).to(dt).float()
-        return self._run(tok)
+        return tok
 
 
 class VisionTransformer4K(_Encoder):
@@ -314,7 +377,8 @@ class VisionTransformer4K(_Encoder):
             torch.zeros(1, s * s + 1, cfg.output_embed_dim))
         self._init_blocks(cfg.output_embed_dim, cfg.depth, cfg)
 
-    def forward(self, grid: torch.Tensor) -> torch.Tensor:
+    def prepare_tokens(self, grid: torch.Tensor) -> torch.Tensor:
+        """phi over the grid, CLS and pos-embed: [B, 1 + gh*gw, 192] f32."""
         cfg = self.cfg
         dt = cfg.dtype
         b, gh, gw, d = grid.shape
@@ -325,7 +389,7 @@ class VisionTransformer4K(_Encoder):
         cls = self.cls_token.to(dt).float().expand(b, -1, -1)
         tok = torch.cat([cls, x], dim=1)
         tok = tok + self._pe.get(self.pos_embed, gh, gw).to(dt).float()
-        return self._run(tok)
+        return tok
 
 
 def vit_small(dtype: torch.dtype = torch.float32, *,

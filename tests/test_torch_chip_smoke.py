@@ -326,3 +326,87 @@ def test_bootstrap_reference_is_the_jax_chunk(fault):
     err = np.nanmax(np.abs(got - want))
     assert np.array_equal(np.isnan(got), np.isnan(want))
     assert (err <= chip_smoke.BOOT_TOL) == (fault is None)
+
+
+@pytest.fixture(scope="module")
+def explain_slide():
+    """One 1024^2 plane slide's pixels, its four 512^2 regions with seeded
+    192-d features, the narrow HIPT widths of test_torch_hipt.py."""
+    import dataclasses
+    from hipt_abmil_atec23_tpu_torch.models import vit
+    from hipt_abmil_atec23_tpu_torch.slideio.synthetic import he_like_planes
+    from test_torch_hipt import NARROW_256, NARROW_4K
+    rgb = he_like_planes(10, 1024)[0]
+    coords = chip_smoke.grid_coords(1024, 512)
+    feats = np.random.default_rng(3).normal(size=(len(coords), 192)).astype(
+        np.float32)
+    widths = dict(vit256_cfg=dataclasses.replace(vit.VIT_CONFIGS["vit_small"],
+                                                 **NARROW_256),
+                  vit4k_cfg=vit.ViT4KConfig(**NARROW_4K))
+    return rgb, coords, feats, widths
+
+
+@pytest.mark.parametrize("fault", [None, "padded_probs", "softmaxed_scores"])
+def test_phase_explain_rehearsal(fault, explain_slide, monkeypatch):
+    """chip_smoke phase 11 at narrow widths on the CPU (512^2 regions,
+    a [3000, 1024] bag), with read_counts counting the pool and block op
+    calls (3 block calls per fused region_attention at depth 2 + 2): it
+    passes on the port as it is, and stops on a planted fault:
+    the last block's probabilities taken over the padded tokens (fused
+    configuration: mass leaks to the pad keys), or infer_attention handing
+    back softmaxed scores for a_raw."""
+    from hipt_abmil_atec23_tpu_torch.models import vit
+    from hipt_abmil_atec23_tpu_torch.models.abmil import MILOutput
+    from hipt_abmil_atec23_tpu_torch.ops import gated_attention_pool as gap
+    counts = {}
+
+    def counting(name, fn):
+        def wrapped(*a, **k):
+            counts[name] = counts.get(name, 0) + 1
+            return fn(*a, **k)
+        return wrapped
+
+    monkeypatch.setattr(vit, "fused_vit_block",
+                        counting("fused_block", vit.fused_vit_block))
+    monkeypatch.setattr(gap, "gated_attention_pool",
+                        counting("gated_pool", gap.gated_attention_pool))
+    monkeypatch.setattr(chip_smoke, "zero_counts", counts.clear)
+    monkeypatch.setattr(chip_smoke, "read_counts", lambda: {
+        name: counts.get(name, 0) for name in chip_smoke.COUNTERS})
+    if fault == "padded_probs":
+        walk, probs, seen = vit._Encoder.walk, vit.Block.attention_probs, {}
+
+        def remembering(self, tok, stop=None):
+            for tok_n in walk(self, tok, stop):
+                seen["tok"] = tok_n[0]
+                yield tok_n
+
+        def over_padded(self, x):
+            # the walk's last tokens, pad rows included, sliced after softmax
+            return probs(self, seen["tok"])[:, :, :x.shape[1], :x.shape[1]]
+
+        monkeypatch.setattr(vit._Encoder, "walk", remembering)
+        monkeypatch.setattr(vit.Block, "attention_probs", over_padded)
+    elif fault == "softmaxed_scores":
+        pooled = gap.apply_pooled
+
+        def softmaxed(model, bag, mask=None):
+            out = pooled(model, bag, mask)
+            return MILOutput(out.logits, out.y_prob, out.y_hat,
+                             torch.softmax(out.a_raw, -1), out.extras)
+
+        monkeypatch.setattr(gap, "apply_pooled", softmaxed)
+    rgb, coords, feats, widths = explain_slide
+    clam = chip_smoke._random_clam(torch.Generator().manual_seed(1),
+                                   torch.device("cpu"))
+    run = functools.partial(
+        chip_smoke.phase_explain, torch.device("cpu"), "cpu", rgb, coords,
+        feats, clam, region=512, big_bag=(3000, 1024), widths=widths)
+    if fault is None:
+        # two calls of each: a warm-up and a timed one
+        assert run() == {"launches": {**{k: 0 for k in chip_smoke.COUNTERS},
+                                      "gated_pool": 4, "fused_block": 6},
+                         "owned": {}}
+    else:
+        with pytest.raises(SystemExit, match="explain"):
+            run()
