@@ -122,6 +122,27 @@ Phases (any failure exits non-zero, and no result line is printed):
      (concat_select) and patch_gallery. The raster steps need cv2 (else
      one line says so and the device half runs alone). One ``explain
      {...}`` line carries the times and the card.
+  12. ResNet and LeViT encoders, online encoding (after phase 11): the
+     colour kernel's ImageNet mode at [256, 256, 256] 4:2:0 (bf16 and
+     f32, bit-equal to its plain version), B.3 on a batch of 256 patches
+     of 256^2 (aligned and off the MCU lattice) and B.2 at serve's
+     [1024, 1024] bucket with a CLAM_SB small head, each timed beside its
+     plain version and bound; then full-width ResNet50-trunc (bf16, seeded
+     weights, batch 256) through build_encoder -> encode_stream on phase
+     3's two plane slides, one phase 4 DCT slide and the RGB rung, 1024
+     patches of 256^2 per slide, counts zeroed before each rung (ycc_input
+     on the plane and DCT rungs, dct_decode on the DCT rung, none on RGB,
+     fused_block never), features against the plain pass (cosine >= 0.999,
+     rel L2 <= 2e-2), patches per second per rung; CLAM_SB small over each
+     [1024, 1024] bag through serve's _mil_bucketed (gated_pool launched,
+     probabilities within 1e-4 of the head's forward); 8 patches against
+     the port on the CPU in f32 (TF32 off on the card) and from bf16;
+     ResNet-18, LeViT-256 and LeViT-128S on the RGB rung (no ycc_input or
+     dct_decode launch), patches per second, each against the CPU port;
+     train_fold for 2 epochs over OnlineEncodingBagDatasets of in-memory
+     slides (75 patches drawn per slide, ResNet50-trunc in the loop), ms
+     per step; OnlineFeatureGather.take twice (the second encodes
+     nothing). One ``resnet {...}`` line carries the numbers and the card.
   8. profile (only with --profile PATH): where one warm encode_stream's
      time goes, stage by stage (the colour and DCT decode stages through
      the kernels beside their plain chains), and torch.profiler kernel
@@ -150,6 +171,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from hipt_abmil_atec23_tpu_torch.data.online import OnlineEncodingBagDataset
 from hipt_abmil_atec23_tpu_torch.device import require_cuda
 from hipt_abmil_atec23_tpu_torch.engine.encode import (
     _decode_batch, build_encoder, encode_stream, probe_dct_caps)
@@ -157,6 +179,8 @@ from hipt_abmil_atec23_tpu_torch.models.abmil import (
     build_mil_model, init_reference_weights)
 from hipt_abmil_atec23_tpu_torch.models.hipt import (
     hipt_eval_normalize, make_hipt_encoder)
+from hipt_abmil_atec23_tpu_torch.models.levit import levit_texture_encoder
+from hipt_abmil_atec23_tpu_torch.models.resnet import resnet18, resnet50_trunc
 from hipt_abmil_atec23_tpu_torch.models.vit import VIT_CONFIGS, Block
 from hipt_abmil_atec23_tpu_torch.ops import flash_attention as fa
 from hipt_abmil_atec23_tpu_torch.ops import fused_mlp as fm
@@ -2712,6 +2736,426 @@ def phase_explain(dev, smi, rgb, coords, feats, clam, *, region=REGION,
     return {"launches": launches, "owned": {}}
 
 
+# ----------------------------------------------------------------- phase 12
+RESNET_BATCH = 256         # patches per batch: the encode stage's default
+RESNET_PATCH = 256         # CLAM's patch encoders' input
+CPU_PATCHES = 8            # patches held against the port on the CPU
+CARD_CPU_F32_REL = 1e-3    # f32 card (TF32 off) against f32 CPU, rel L2:
+                           # cuDNN's and oneDNN's conv algorithms sum in
+                           # other orders over 13-16 residual blocks
+# bf16 card against f32 CPU, (min cosine, max rel L2): the ResNets round
+# their folded weights and activations; LeViT also keeps its residual
+# stream in bf16 over 24-30 blocks, and LeViT-256's seeded weights grow
+# its features to norms ~500: on 8 of these patches its bf16 features
+# are 0.085 relative L2 from its f32 ones on the CPU alone, the card's
+# as far. The card's arithmetic is held by the f32 check above.
+BF16_CPU_TOL = {"resnet50": (0.999, 2e-2), "resnet18": (0.999, 2e-2),
+                "levit_256": (0.99, 0.15), "levit_128s": (0.99, 0.15)}
+ONLINE_PATCHES = 75        # patches drawn per slide (with replacement)
+PROB_TOL = 1e-4            # serve's bucketed pool against the head
+
+
+def patch_grid(plane, n_side, size):
+    """The first n_side x n_side ``size`` px patches of a plane, row-major,
+    as one contiguous [n_side^2, size, size] array."""
+    return np.ascontiguousarray(
+        plane[:n_side * size, :n_side * size]
+        .reshape(n_side, size, n_side, size).transpose(0, 2, 1, 3)
+        .reshape(n_side * n_side, size, size))
+
+
+def encoder_gflop(model, size) -> float:
+    """GFLOP of one ``size`` px patch through a copy of ``model`` on the
+    CPU in f32 (torch.utils.flop_counter: the convolutions and matrix
+    products)."""
+    import copy
+    from torch.utils.flop_counter import FlopCounterMode
+    cpu = copy.deepcopy(model).float().cpu()
+    if hasattr(cpu, "dtype"):
+        cpu.dtype = torch.float32
+    with FlopCounterMode(display=False) as fc, torch.no_grad():
+        cpu(torch.zeros(1, size, size, 3))
+    return fc.get_total_flops() / 1e9
+
+
+def _colour_imagenet(dev, planes) -> dict:
+    """The colour kernel's ImageNet mode at the patch encoders' batch (256
+    patches of 256^2, 4:2:0, cut from a plane slide), bf16 and f32,
+    against its plain version on the card; timed in bf16."""
+    _, y, cb, cr = planes
+    n = int(RESNET_BATCH ** 0.5)
+    py, pb, pr = (torch.from_numpy(patch_grid(p, n, RESNET_PATCH // s))
+                  .to(dev) for p, s in ((y, 1), (cb, 2), (cr, 2)))
+    worst = 0.0
+    with torch.inference_mode():
+        for dt in (torch.bfloat16, torch.float32):
+            got = yuv.ycc_to_input(py, pb, pr, dt, normalize="imagenet")
+            want = yuv.ycc_to_input_reference(py, pb, pr, dt, "imagenet")
+            worst = max(worst, colour_check(
+                f"imagenet 4:2:0 {list(py.shape)} {dt}", got, want))
+            if not torch.equal(got, want):
+                raise SystemExit(f"ycc_input imagenet {dt}: not bit-equal "
+                                 "to its plain version")
+        call = lambda: yuv.ycc_to_input(py, pb, pr, normalize="imagenet")
+        ms = device_ms(call, ("ycc_kernel",))
+        call_ms = gpu_timer(call)
+        pms = gpu_timer(lambda: yuv.ycc_to_input_reference(
+            py, pb, pr, torch.bfloat16, "imagenet"), iters=3)
+    px = py.numel()
+    nbytes = px * 1.5 + px * 3 * 2
+    b_ms, b_by = bound(nbytes, (COLOUR_FLOPS_PER_PX + 3) * px, F32_FLOP_S)
+    log(f"ycc_input imagenet {list(py.shape)} 4:2:0 -> bf16: kernel "
+        f"{ms:.4f} ms on the device, call {call_ms:.4f} ms, plain "
+        f"{pms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    return {"shape": f"Y {list(py.shape)} + Cb, Cr {list(pb.shape)} uint8 "
+            "-> bf16, ImageNet normalize", "ms": ms, "call_ms": call_ms,
+            "plain_ms": pms, "bound_ms": b_ms, "bound_by": b_by,
+            "max_abs_err": worst}
+
+
+def _decode_patches(dev, dct_slide) -> dict:
+    """B.3 on one batch of 256 patches of 256^2, aligned and off the 16 px
+    MCU lattice: coefficient tap bit-equal, planes within 1 LSB; timed on
+    the aligned pack."""
+    n = int(RESNET_BATCH ** 0.5)
+    aligned = grid_coords(n * RESNET_PATCH, RESNET_PATCH)
+    out, worst = {}, 0
+    for what, coords in (("aligned", aligned), ("offset", aligned + [8, 24])):
+        host, pack = _device_pack(dct_slide, coords, dev,
+                                  region=RESNET_PATCH)
+        planes, taps, want, want_taps = _decode_pair(pack)
+        if planes[0].shape != (RESNET_BATCH, RESNET_PATCH, RESNET_PATCH):
+            raise SystemExit(f"dct_decode {what} patches: Y "
+                             f"{planes[0].shape}")
+        worst = max(worst, decode_check(f"{what} [256 x 256^2]", planes,
+                                        taps, want, want_taps))
+        if what == "aligned":
+            with torch.inference_mode():
+                call = lambda: jpegdct.dct_regions_to_planes(*pack)
+                ms = device_ms(call, ("dc_kernel", "decode_kernel"))
+                call_ms = gpu_timer(call)
+                pms = gpu_timer(lambda: jpegdct
+                                .dct_regions_to_planes_reference(*pack),
+                                iters=3)
+            nbytes = (sum(t.numel() * t.element_size() for t in pack)
+                      + sum(p.numel() for p in planes))
+            b_ms, b_by = bound(nbytes, idct_flops(host), F32_FLOP_S)
+            out = {"shape": "v3 pack -> Y [256,256,256] + Cb, Cr "
+                   "[256,128,128] uint8 (one batch of 256 patches)",
+                   "ms": ms, "call_ms": call_ms, "plain_ms": pms,
+                   "bound_ms": b_ms, "bound_by": b_by}
+            log(f"dct_decode [256 x 256^2]: kernels {ms:.4f} ms on the "
+                f"device, call {call_ms:.4f} ms, plain {pms:.4f} ms, bound "
+                f"{b_ms:.4f} ms ({b_by}), pack "
+                f"{sum(a.nbytes for a in host[:27]) / 1e6:.2f} MB")
+    out["max_abs_err"] = worst
+    return out
+
+
+def _pool_resnet_bag(dev, clam) -> dict:
+    """B.2 at serve's bucket for one ResNet50-trunc slide: [1024, 1024],
+    CLAM_SB small (L 512), against its plain version; timed."""
+    p = gap.params_from_clam(clam)
+    g = torch.Generator().manual_seed(12)
+    bag = torch.randn(1024, 1024, generator=g).to(dev)
+    mask = torch.ones(1024, dtype=torch.bool, device=dev)
+    with torch.inference_mode():
+        logits, scores = gap.gated_attention_pool(bag, p, mask=mask)
+        ref_logits, ref_scores = gap.gated_attention_pool_reference(
+            bag, mask, p)
+        err = max((logits - ref_logits).abs().max().item(),
+                  (scores - ref_scores).abs().max().item())
+        return _pool_row(
+            "gated_pool", p, bag, err,
+            lambda: gap.gated_attention_pool(bag, p, mask=mask),
+            lambda: gap.gated_attention_pool_reference(bag, mask, p),
+            "[1024,1024] f32, L 512 (serve's bucket, one ResNet slide)")
+
+
+def _rung_run(what, jobs, enc, plain_enc, expect, dev, stats_want=None):
+    """One rung of the ResNet main path: counts zeroed, encode_stream over
+    the jobs, counts read; then the plain pass and the features held
+    against it. ``expect``: kernel -> True (must launch) / False (must
+    not). Returns (features, launches, patches per second)."""
+    zero_counts()
+    stats = {}
+    feats, wall = encode_slides(jobs, enc, RESNET_PATCH,
+                                adaptive_rungs=False, stats=stats)
+    _sync(dev)
+    launches = read_counts()
+    n = sum(len(c) for _, _, c in jobs)
+    pps = n / wall
+    log(f"resnet50 {what} rung: {n} patches of {RESNET_PATCH}^2 at batch "
+        f"{enc.batch_size} in {wall:.3f} s, {pps:.1f} patches/s (host read "
+        f"+ H2D + decode + encode); launches {launches}; regions "
+        f"dct/yuv/rgb {stats.get('regions_dct', 0)}/"
+        f"{stats.get('regions_yuv', 0)}/{stats.get('regions_rgb', 0)}")
+    if stats_want and stats.get(f"regions_{stats_want}", 0) != n:
+        raise SystemExit(f"resnet50 {what}: not every patch rode the "
+                         f"{stats_want} rung")
+    for name, must in expect.items():
+        if bool(launches[name]) != must:
+            raise SystemExit(f"resnet50 {what} rung: {name} launched "
+                             f"{launches[name]} times")
+    if plain_enc is not None:
+        plain, _ = encode_slides(jobs, plain_enc, RESNET_PATCH,
+                                 adaptive_rungs=False)
+        cos, rel = feature_agreement(feats, plain)
+        log(f"resnet50 {what} rung, kernels vs plain: min cosine {cos:.6f} "
+            f"(>= 0.999), max rel L2 {rel:.3g} (<= 2e-2)")
+        if not (cos >= 0.999 and rel <= 2e-2):
+            raise SystemExit(f"resnet50 {what}: kernel features disagree "
+                             "with the plain pass")
+    for sid, f in feats.items():
+        if f.shape != (len(jobs[0][2]), enc.feat_dim) or \
+                not np.isfinite(f).all():
+            raise SystemExit(f"resnet50 {what} {sid}: bad features "
+                             f"{f.shape}")
+    return feats, launches, pps
+
+
+def against_cpu(name, enc, pixels):
+    """The card's bf16 encoder ``name``, and an f32 copy of its weights on
+    the card (TF32 off), against the f32 copy on the CPU on ``pixels``:
+    cosine and relative L2 per patch; returns (f32 rel L2, bf16 rel L2)."""
+    sd = enc.model.state_dict()
+
+    def f32_model():
+        m = (resnet50_trunc() if name == "resnet50" else resnet18()
+             if name == "resnet18" else levit_texture_encoder(name))
+        m.load_state_dict(sd)
+        return m
+    cfg = EncoderConfig(model_type=name, batch_size=len(pixels),
+                        dtype="float32")
+    x = torch.from_numpy(pixels)
+    want = build_encoder(cfg, device="cpu", model=f32_model()).apply(x)
+    rels = []
+    for what, e, (min_cos, max_rel) in (
+            ("f32", build_encoder(cfg, device=enc.device, model=f32_model()),
+             (0.9999, CARD_CPU_F32_REL)),
+            ("bf16", enc, BF16_CPU_TOL[name])):
+        got = e.apply(x.to(e.device)).float().cpu()
+        cos, rel = feature_agreement({"p": got.numpy()}, {"p": want.numpy()})
+        log(f"{name} {what} on the card against the port on the CPU in "
+            f"f32, {len(pixels)} patches: min cosine {cos:.6f} (>= "
+            f"{min_cos}), max rel L2 {rel:.3g} (<= {max_rel:g})")
+        if not (torch.isfinite(got).all() and cos >= min_cos
+                and rel <= max_rel):
+            raise SystemExit(f"{name} {what}: the card disagrees with the "
+                             "CPU port")
+        rels.append(rel)
+    torch.cuda.empty_cache()
+    return rels
+
+
+class MemoryOnlineDataset(OnlineEncodingBagDataset):
+    """The port's OnlineEncodingBagDataset over in-memory slides and
+    coords (the card machine has no h5py for coords h5s): its two file
+    reads overridden."""
+
+    def __init__(self, ids, labels, encoder, slides, coords, cfg):
+        super().__init__(ids, labels, encoder, {}, "", cfg)
+        self.mem_slides, self.mem_coords = slides, coords
+
+    def _load_coords(self, sid):
+        return self.mem_coords[sid], {"patch_size": RESNET_PATCH,
+                                      "patch_level": 0}
+
+    def _open_slide(self, sid):
+        return self.mem_slides[sid]
+
+
+def _counting(enc):
+    """A copy of ``enc`` whose three entries count their calls."""
+    import dataclasses
+    enc = dataclasses.replace(enc)
+    calls = []
+    for name in ("apply", "apply_yuv", "apply_dct"):
+        def wrapped(*a, _fn=getattr(enc, name)):
+            calls.append(len(a[0]))
+            return _fn(*a)
+        setattr(enc, name, wrapped)
+    return enc, calls
+
+
+def phase_resnet(dev, smi, planes, dct_slide, records) -> dict:
+    """ResNet50-trunc (full width, bf16, seeded weights, batch 256) on the
+    plane, DCT and RGB rungs through build_encoder -> encode_stream ->
+    CLAM_SB small through serve's _mil_bucketed; ResNet-18 and both LeViTs
+    on the RGB rung; online training over OnlineEncodingBagDatasets. The
+    colour kernel's ImageNet mode, B.3 at the patch batch and B.2 at the
+    [1024, 1024] bucket against their plain versions first (their records
+    in ``records`` gain those rows)."""
+    import dataclasses
+    from hipt_abmil_atec23_tpu_torch.data.online import OnlineFeatureGather
+    from hipt_abmil_atec23_tpu_torch.engine.train import train_fold
+    from hipt_abmil_atec23_tpu_torch.utils.config import ExperimentConfig
+    out = {"card": smi}
+
+    # 1. kernels at this slice's shapes, before the counts are zeroed
+    colour = _colour_imagenet(dev, planes[0])
+    decode = _decode_patches(dev, dct_slide)
+    clam = _reference_clam("small", 5, dev)
+    pool = _pool_resnet_bag(dev, clam)
+    torch.cuda.empty_cache()
+
+    # 2. ResNet50-trunc on three rungs, CLAM_SB small on each bag
+    cfg = EncoderConfig(model_type="resnet50", batch_size=RESNET_BATCH,
+                        dtype="bfloat16")
+    enc = build_encoder(cfg, device=dev)
+    plain_enc = dataclasses.replace(enc, plain_unpack=True)
+    gflop = encoder_gflop(enc.model, RESNET_PATCH)
+    out["gflop_per_patch"] = gflop
+    log(f"resnet50: {gflop:.3f} GFLOP per {RESNET_PATCH}^2 patch "
+        f"(flop counter), {enc.feat_dim}-d, batch {enc.batch_size}, bf16")
+    pcoords = grid_coords(planes[0][1].shape[0], RESNET_PATCH)
+    slides = {f"mem{i}": PlaneSlide(*p) for i, p in enumerate(planes)}
+    jobs = [(sid, s, pcoords) for sid, s in slides.items()]
+    encode_slides([(jobs[0][0], jobs[0][1], pcoords[:RESNET_BATCH])], enc,
+                  RESNET_PATCH)  # warm-up: cuDNN, the allocator
+    plane_feats, plane_l, out["pps_plane"] = _rung_run(
+        "plane", jobs, enc, plain_enc,
+        {"ycc_input": True, "dct_decode": False, "fused_block": False},
+        dev, "yuv")
+    dcoords = grid_coords(dct_slide.level_dimensions[0][0], RESNET_PATCH)
+    dct_feats, dct_l, out["pps_dct"] = _rung_run(
+        "DCT", [("dct0", dct_slide, dcoords)], enc, plain_enc,
+        {"ycc_input": True, "dct_decode": True, "fused_block": False},
+        dev, "dct")
+    rgb_enc = dataclasses.replace(enc, plane_rung=False, dct_rung=False)
+    _, rgb_l, out["pps_rgb"] = _rung_run(
+        "RGB", jobs[:1], rgb_enc, None,
+        {"ycc_input": False, "dct_decode": False, "fused_block": False},
+        dev, "rgb")
+
+    zero_counts()
+    worst = 0.0
+    for sid, f in {**plane_feats, **dct_feats}.items():
+        o, ref_logits = score(clam, f, dev)
+        with torch.inference_mode():
+            want = clam(torch.from_numpy(f).to(dev)).y_prob[0].float().cpu()
+        got = o.y_prob[0].float().cpu()
+        d = (got - want).abs().max().item()
+        dl = (o.logits[0] - ref_logits).abs().max().item() / max(
+            1.0, ref_logits.abs().max().item())
+        worst = max(worst, d)
+        log(f"resnet50 {sid}: CLAM_SB small over [{len(f)}, {f.shape[1]}] "
+            f"through _mil_bucketed: p={got.tolist()}, logits "
+            f"{o.logits[0].tolist()}; against the head's forward max |dp| "
+            f"{d:.3g} (<= {PROB_TOL:g}), logits against the plain pool "
+            f"{dl:.3g} of max(1, |logit|) (<= {POOL_TOL:g})")
+        if not (d <= PROB_TOL and dl <= POOL_TOL):
+            raise SystemExit(f"resnet50 {sid}: the pooled head disagrees")
+    score_l = read_counts()
+    if score_l["gated_pool"] == 0:
+        raise SystemExit("the ResNet bags never launched gated_pool")
+    out["prob_err"] = worst
+
+    pix = slides["mem0"].read_regions(pcoords[:CPU_PATCHES], 0,
+                                      (RESNET_PATCH,) * 2)
+    log("f32 on the card: TF32 off (cudnn.allow_tf32 False around the "
+        "ResNet convolutions, cuda.matmul.allow_tf32 False)")
+    out["card_cpu_rel_resnet50"] = against_cpu("resnet50", enc, pix)
+
+    # 3. ResNet-18 and both LeViTs on the RGB rung
+    for name in ("resnet18", "levit_256", "levit_128s"):
+        e = build_encoder(dataclasses.replace(cfg, model_type=name),
+                          device=dev)
+        e = dataclasses.replace(e, plane_rung=False, dct_rung=False)
+        encode_slides([("w", slides["mem0"], pcoords[:RESNET_BATCH])], e,
+                      RESNET_PATCH)  # warm-up
+        zero_counts()
+        feats, wall = encode_slides([("m", slides["mem0"], pcoords)], e,
+                                    RESNET_PATCH)
+        _sync(dev)
+        lc = read_counts()
+        if lc["ycc_input"] or lc["dct_decode"] or lc["fused_block"]:
+            raise SystemExit(f"{name} on the RGB rung launched {lc}")
+        f = feats["m"]
+        if f.shape != (len(pcoords), e.feat_dim) or not np.isfinite(f).all():
+            raise SystemExit(f"{name}: bad features {f.shape}")
+        out[f"pps_{name}"] = len(pcoords) / wall
+        out[f"gflop_{name}"] = encoder_gflop(e.model, RESNET_PATCH)
+        log(f"{name} RGB rung: {len(pcoords)} patches of {RESNET_PATCH}^2 "
+            f"(input {e.input_size}) at batch {e.batch_size} in "
+            f"{wall:.3f} s, {out[f'pps_{name}']:.1f} patches/s, "
+            f"{out[f'gflop_{name}']:.3f} GFLOP per patch, {e.feat_dim}-d; "
+            f"no ycc_input / dct_decode launch")
+        out[f"card_cpu_rel_{name}"] = against_cpu(name, e, pix)
+        del e
+        torch.cuda.empty_cache()
+
+    # 4. online training: CLAM_SB small over in-memory slides, 75 patches
+    # drawn per slide per step, encoded by ResNet50-trunc in the loop
+    oenc = dataclasses.replace(enc, batch_size=ONLINE_PATCHES)
+    quads = [pcoords[(pcoords[:, 0] // (len(planes[0][1]) // 2) == qx)
+                     & (pcoords[:, 1] // (len(planes[0][1]) // 2) == qy)]
+             for qx in (0, 1) for qy in (0, 1)]
+    ids = [f"on{i}" for i in range(8)]
+    oslides = {sid: slides[f"mem{i % 2}"] for i, sid in enumerate(ids)}
+    ocoords = {sid: quads[i // 2] for i, sid in enumerate(ids)}
+    labels = np.array([i % 2 for i in range(8)], np.int32)
+    ecfg = ExperimentConfig.from_dict({
+        "task": {"n_classes": 2, "label_dict": {"0": 0, "1": 1}},
+        "bags": {"max_patches_per_slide": ONLINE_PATCHES, "batch_size": 1},
+        "model": {"model_type": "clam_sb", "model_size": "small"},
+        "train": {"max_epochs": 2, "early_stopping": False, "seed": 0}})
+    parts = (range(0, 4), range(4, 6), range(6, 8))
+    with tempfile.TemporaryDirectory() as tmp:
+        ecfg.results_dir = tmp
+        dss = [MemoryOnlineDataset([ids[i] for i in part], labels[list(part)],
+                                   oenc, oslides, ocoords, ecfg.bags)
+               for part in parts]
+        zero_counts()
+        _sync(dev)
+        t0 = time.perf_counter()
+        with _StepTimer(dev) as timer:
+            res = train_fold(ecfg, 0, *dss, np.array([4, 4]),
+                             feat_dim=enc.feat_dim, verbose=False,
+                             device=dev)
+        wall = time.perf_counter() - t0
+    online_l = read_counts()
+    steps = sum(n for n, _ in timer.epochs)
+    out.update(online_ms_per_step_device=timer.ms_per_step(),
+               online_ms_per_step_wall=wall * 1e3 / steps,
+               online_wall_s=wall)
+    log(f"online training: train_fold, 2 epochs, {steps} steps of one "
+        f"{ONLINE_PATCHES}-patch bag encoded in the loop: {wall:.2f} s, "
+        f"{out['online_ms_per_step_wall']:.1f} ms per step with its "
+        f"encode (val and test passes included), train_epoch "
+        f"{out['online_ms_per_step_device']:.2f} ms per step (warm epoch); "
+        f"history "
+        f"{[round(h['train_loss'], 4) for h in res.history]}; launches "
+        f"{online_l}")
+    if len(res.history) != 2 or not np.isfinite(res.test_probs).all() \
+            or online_l["ycc_input"] == 0:
+        raise SystemExit("online training did not run through the plane "
+                         "rung or gave no finite result")
+    genc, calls = _counting(oenc)
+    gather = OnlineFeatureGather(slides["mem1"], pcoords, genc,
+                                 region_size=RESNET_PATCH)
+    idxs = np.arange(0, len(pcoords), 13)
+    first = gather.take(idxs)
+    n_first = len(calls)
+    again = gather.take(idxs[::-1])
+    log(f"OnlineFeatureGather.take of {len(idxs)} patches: {n_first} "
+        f"encoder calls, then {len(calls) - n_first} for the second take")
+    if n_first == 0 or len(calls) != n_first or \
+            not np.array_equal(again, first[::-1]):
+        raise SystemExit("OnlineFeatureGather re-encoded cached patches")
+
+    records["ycc_input"]["imagenet"] = dict(
+        colour, launches=plane_l["ycc_input"] + dct_l["ycc_input"])
+    records["dct_decode"]["patch_256"] = dict(
+        decode, launches=dct_l["dct_decode"])
+    records["gated_pool"]["resnet_bag"] = dict(
+        pool, launches=score_l["gated_pool"])
+    launches = {k: plane_l[k] + dct_l[k] + rgb_l[k] + score_l[k]
+                for k in plane_l}
+    log("resnet " + json.dumps(out))
+    return {"launches": launches, "owned": {}}
+
+
 def set_launches(records, paths) -> None:
     """Each record's launches from the run of the path that owns its kernel
     (``paths``: name -> a phase's result, whose "owned" holds the counts
@@ -2759,6 +3203,7 @@ def main() -> int:
         phase_files(dev, res["encoder"])
     xres = phase_explain(dev, smi, planes[0][0], res["jobs"][0][2],
                          res["feats"]["mem0"], res["clam"])
+    rres = phase_resnet(dev, smi, planes, dct_slides[0], kres["records"])
     if args.profile:
         phase_profile(dev, res["encoder"], pres["encoder"], planes[0],
                       dct_slides[0], args.profile)
@@ -2766,7 +3211,7 @@ def main() -> int:
     set_launches(records, {**kres["paths"], "plane": res, "dct": dres,
                            "per_op": pres, "sharded": sres,
                            "encode_stage": eres, "train_eval": tres,
-                           "explain": xres})
+                           "explain": xres, "resnet": rres})
     records["fused_block"].update(
         launches_vit256=eres["launches_vit256"],
         ms_256x264x384=eres.get("block_ms_vit256"))

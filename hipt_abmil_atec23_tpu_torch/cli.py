@@ -12,11 +12,12 @@ in the reference layout under feat_dir, split CSVs, fold CSVs, summaries and
 the experiment settings, the serve journal and results, heatmaps,
 blockmaps, ROIs and attention galleries. Checkpoints are the reference's
 ``s_{fold}_checkpoint.pt``. ``--device`` picks the card (``cuda``, the
-default) or the CPU (``cpu``). Choices the port does not have yet (the
-ResNet and LeViT encoders, flax MIL checkpoints, tuning, fold- and
-trial-parallel training, DRAS sampling, online encoding) raise an error
-that names the ROADMAP item that ports them; knn, export and parity are
-not ported yet.
+default) or the CPU (``cpu``). Every encoder of the JAX package (HIPT_4K,
+vit256, resnet50, resnet18, levit_128s, levit_256) runs in ``encode``,
+``serve``, ``heatmap`` and online training (``train --extract_features``).
+Choices the port does not have yet (flax MIL checkpoints, tuning, fold-
+and trial-parallel training, DRAS sampling) raise an error that names the
+ROADMAP item that ports them; knn, export and parity are not ported yet.
 """
 from __future__ import annotations
 
@@ -181,7 +182,7 @@ def _cmd_encode(a):
 # train / eval flags the port refuses, with the ROADMAP item that ports them
 _NOT_PORTED = {"tuning": "§A.10", "trial_parallel": "§A.10",
                "fold_parallel": "§A.10", "sampling": "§A.9",
-               "use_sampling": "§A.9", "extract_features": "§A.11"}
+               "use_sampling": "§A.9"}
 
 
 def _add_train(sub):
@@ -233,9 +234,21 @@ def _add_train(sub):
     p.add_argument("--debug_loader", action="store_true",
                    help="iterate the data pipeline once without training "
                         "(reference: --debug_loader)")
+    # online feature extraction: a frozen encoder in the training loop
+    # (reference: --extract_features, core_utils.py:106-119)
+    p.add_argument("--extract_features", action="store_true")
+    p.add_argument("--data_h5_dir", default=None)
+    p.add_argument("--data_slide_dir", default=None)
+    p.add_argument("--slide_ext", default=".tif")
+    p.add_argument("--model_architecture", default="resnet50",
+                   choices=ENCODERS)
+    p.add_argument("--pretraining_dataset", default="ImageNet")
+    p.add_argument("--use_transforms", default="none")
+    p.add_argument("--vit256_ckpt", default=None)
+    p.add_argument("--vit4k_ckpt", default=None)
+    p.add_argument("--resnet_ckpt", default=None)
     # not ported yet: each is refused, naming its ROADMAP item
-    for flag in ("sampling", "tuning", "trial_parallel", "fold_parallel",
-                 "extract_features"):
+    for flag in ("sampling", "tuning", "trial_parallel", "fold_parallel"):
         p.add_argument(f"--{flag}", action="store_true",
                        help=f"not ported yet (ROADMAP {_NOT_PORTED[flag]})")
     _add_route_flags(p, "train")
@@ -251,9 +264,7 @@ _ROUTE_FLAGS = {
               "final_sample_size weight_smoothing sampling_update "
               "no_sampling_epochs fully_random grid_sample "
               "num_tuning_samples tuning_output_file checkpoint_trials "
-              "resume_tuning grace_period data_h5_dir data_slide_dir "
-              "slide_ext model_architecture pretraining_dataset "
-              "use_transforms vit256_ckpt vit4k_ckpt resnet_ckpt"),
+              "resume_tuning grace_period"),
     "eval": ("device_sampling samples_per_iteration resampling_iterations "
              "sampling_neighbors final_sample_size weight_smoothing "
              "sampling_random sampling_random_delta fully_random "
@@ -371,6 +382,9 @@ def _cmd_train(a):
         return
 
     def run():
+        if a.extract_features:
+            _train_online(a, cfg, manifest, device)
+            return
         if a.full_bag_sharded:
             _train_full_bags(cfg, manifest, store, device)
             return
@@ -394,6 +408,67 @@ def _cmd_train(a):
             pstats.Stats(pr).sort_stats("cumulative").print_stats(25)
         else:
             run()
+
+
+def _train_online(a, cfg, manifest, device) -> None:
+    """MIL training with a frozen encoder in the loop, no feature bags
+    (reference: --extract_features path): bags are sampled coords of each
+    slide, encoded when drawn (data/online.py)."""
+    import warnings
+    import pandas as pd
+    from hipt_abmil_atec23_tpu_torch.data.online import (
+        OnlineEncodingBagDataset)
+    from hipt_abmil_atec23_tpu_torch.engine.encode import build_encoder
+    from hipt_abmil_atec23_tpu_torch.engine.experiment import (
+        _write_fold_csv, fold_range, make_fold_datasets, summary_csv_name)
+    from hipt_abmil_atec23_tpu_torch.engine.train import train_fold
+    from hipt_abmil_atec23_tpu_torch.ops.augment import build_transform
+    from hipt_abmil_atec23_tpu_torch.utils.config import EncoderConfig
+
+    if not (a.data_h5_dir and a.data_slide_dir):
+        raise SystemExit("--extract_features requires --data_h5_dir and "
+                         "--data_slide_dir")
+    enc_cfg = EncoderConfig(
+        model_type=a.model_architecture,
+        pretraining_dataset=a.pretraining_dataset,
+        vit256_ckpt=a.vit256_ckpt, vit4k_ckpt=a.vit4k_ckpt,
+        resnet_ckpt=a.resnet_ckpt)
+    if not (a.resnet_ckpt or (a.vit256_ckpt and a.vit4k_ckpt)):
+        warnings.warn(
+            "--extract_features without encoder checkpoints: the frozen "
+            "encoder runs with seeded RANDOM weights (pipeline testing "
+            "only). Pass --resnet_ckpt or --vit256_ckpt/--vit4k_ckpt for "
+            "real features.")
+    encoder = build_encoder(enc_cfg, device=device)
+    transform = build_transform(a.use_transforms)
+    coords_dir = os.path.join(a.data_h5_dir, "patches")
+    slide_paths = {sid: os.path.join(a.data_slide_dir, sid + a.slide_ext)
+                   for sid in manifest.slide_ids}
+
+    def factory(sub_manifest, is_train):
+        return OnlineEncodingBagDataset(
+            list(sub_manifest.slide_ids), sub_manifest.labels, encoder,
+            slide_paths, coords_dir, cfg.bags,
+            transform=transform if is_train else None)
+
+    rows = []
+    for fold in fold_range(cfg):
+        tr, va, te = make_fold_datasets(manifest, None, cfg, fold,
+                                        factory=factory)
+        try:
+            res = train_fold(cfg, fold, tr, va, te, manifest.class_counts(),
+                             feat_dim=encoder.feat_dim, device=device)
+        finally:
+            for ds in (tr, va, te):
+                ds.close()
+        _write_fold_csv(cfg.results_dir, res)
+        rows.append({"folds": fold, "test_auc": res.test_auc,
+                     "val_auc": res.val_auc, "test_acc": res.test_acc,
+                     "val_acc": res.val_acc})
+    summary = pd.DataFrame(rows)
+    summary.to_csv(os.path.join(cfg.results_dir, summary_csv_name(cfg)),
+                   index=False)
+    print(summary)
 
 
 def _add_eval(sub):
@@ -579,7 +654,6 @@ def _add_serve(sub):
 
 
 def _cmd_serve(a):
-    from hipt_abmil_atec23_tpu_torch.engine.encode import NOT_PORTED_ENCODERS
     from hipt_abmil_atec23_tpu_torch.engine.serve import (
         ServeConfig, ServeState, serve_forever, serve_once, write_config)
     from hipt_abmil_atec23_tpu_torch.utils.config import (
@@ -588,9 +662,6 @@ def _cmd_serve(a):
     # refused before serving starts: the daemon logs a failed drain and
     # polls on, so these would otherwise never stop it
     check_model_type(a.model_type)
-    if a.encoder in NOT_PORTED_ENCODERS:
-        raise NotImplementedError(f"encoder {a.encoder!r} is not ported yet "
-                                  "(ROADMAP §A.11)")
     if not a.ckpt.endswith(".pt"):
         raise NotImplementedError(f"{a.ckpt!r}: the port serves "
                                   "reference-layout torch .pt MIL heads; "

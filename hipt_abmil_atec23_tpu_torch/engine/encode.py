@@ -1,5 +1,6 @@
 """Feature extraction: slides + coords -> per-slide feature bags (HIPT_4K
-region features, or ViT-256 patch features).
+region features; ViT-256, ResNet50-trunc, ResNet-18 or LeViT patch
+features).
 
 Counterpart of hipt_abmil_atec23_tpu/engine/encode.py:
 
@@ -50,6 +51,7 @@ import torch.nn as nn
 from hipt_abmil_atec23_tpu_torch.device import resolve_device
 from hipt_abmil_atec23_tpu_torch.models.hipt import (
     hipt_eval_normalize, make_hipt_encoder)
+from hipt_abmil_atec23_tpu_torch.models.resnet import imagenet_normalize
 from hipt_abmil_atec23_tpu_torch.ops.jpegdct import _G, dct_regions_to_planes
 from hipt_abmil_atec23_tpu_torch.ops.yuv import ycc_to_input
 from hipt_abmil_atec23_tpu_torch.utils.config import EncoderConfig
@@ -151,25 +153,30 @@ def select_rung(feasible, wire_mbps, region_px, dct_bytes_per_px=None,
 class Encoder:
     """A fixed-batch encoder on one device: uint8 RGB [B, S, S, 3], YCbCr
     planes or a sparse-DCT pack -> [B, feat_dim] f32, the normalize fused
-    in. ``features``: the ``model.asset_dict`` entry to return (HIPT's
-    mean256 / concat variants), or None for ``model(x)``. ``dct_rung``
-    offers the sparse-DCT entry to encode_stream (the JAX package's
-    ``apply_dct is not None``). On the card the plane and DCT entries run
-    the colour kernel (and the DCT entry the decode kernel before it);
-    ``plain_unpack`` runs both plain versions on the card too, for a
-    reference pass; the serving path leaves it off."""
+    in. ``normalize``: the encoder's input transform, "hipt" (x / 127.5 -
+    1; HIPT_4K, vit256) or "imagenet" (ResNet, LeViT). ``features``: the
+    ``model.asset_dict`` entry to return (HIPT's mean256 / concat
+    variants), or None for ``model(x)``. ``plane_rung`` and ``dct_rung``
+    offer the raw-plane and sparse-DCT entries to encode_stream (the JAX
+    package's ``apply_yuv`` / ``apply_dct is not None``; LeViT has
+    neither). On the card the plane and DCT entries run the colour kernel
+    (and the DCT entry the decode kernel before it); ``plain_unpack`` runs
+    both plain versions on the card too, for a reference pass; the serving
+    path leaves it off."""
     model: nn.Module
     batch_size: int
     input_size: int      # spatial size S of one region or patch
     feat_dim: int
     device: torch.device
     dct_rung: bool = True
+    plane_rung: bool = True
     plain_unpack: bool = False
     features: Optional[str] = None
+    normalize: str = "hipt"
 
     def apply(self, batch_u8: torch.Tensor) -> torch.Tensor:
         with torch.inference_mode():
-            return self._forward(hipt_eval_normalize(batch_u8))
+            return self._forward(NORMALIZE[self.normalize](batch_u8))
 
     def apply_yuv(self, y: torch.Tensor, cb: torch.Tensor,
                   cr: torch.Tensor) -> torch.Tensor:
@@ -185,6 +192,7 @@ class Encoder:
 
     def _encode_planes(self, y, cb, cr) -> torch.Tensor:
         return self._forward(ycc_to_input(y, cb, cr, self.model.input_dtype,
+                                          normalize=self.normalize,
                                           plain=self.plain_unpack))
 
     def _forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -197,7 +205,7 @@ class Encoder:
 # (reference: forward_asset_dict, hipt_4k.py:79-118); cls4k is the forward
 HIPT_FEATURES = {"cls4k": None, "mean256": "features_mean256",
                  "concat": "features_mean256_cls4k"}
-NOT_PORTED_ENCODERS = ("resnet50", "resnet18", "levit_128s", "levit_256")
+NORMALIZE = {"hipt": hipt_eval_normalize, "imagenet": imagenet_normalize}
 
 
 def build_encoder(cfg: EncoderConfig, *, device, model: nn.Module = None,
@@ -207,21 +215,34 @@ def build_encoder(cfg: EncoderConfig, *, device, model: nn.Module = None,
     - HIPT_4K: 4096 px regions -> ``cfg.hipt_features``: cls4k (the ViT-4K
       CLS, 192), mean256 (the mean of the 256 ViT-256 CLS, 384) or concat
       (both, 576);
-    - vit256: ViT-256 alone on 256 px patches -> its CLS (384).
+    - vit256: ViT-256 alone on 256 px patches -> its CLS (384);
+    - resnet50 / resnet18: ResNet50-trunc (1024) / ResNet-18 (512) on 256
+      px patches, ImageNet-normalized, on all three rungs;
+    - levit_128s / levit_256: LeViT (384 / 512) on 224 px patches (larger
+      ones centre-cropped), ImageNet-normalized, on the RGB rung only.
+      Each name is the architecture it says (the reference's levit_128s
+      instantiated levit_256).
 
-    ``model``: a prebuilt models.hipt.HIPT4K or models.vit.VisionTransformer
-    (tests pass narrow ones, and the per-op kernel configuration enters
-    here); otherwise the full-width model at ``cfg.dtype`` with every block
-    as the fused block kernel, as the JAX package builds it on its
-    accelerator, with seeded random weights unless ``state_dict`` or the
-    DINO checkpoints in ``cfg`` (vit256_ckpt, and vit4k_ckpt for HIPT_4K)
-    are given. ResNet and LeViT are not ported yet (ROADMAP §A.11)."""
+    ``model``: a prebuilt model of that kind (tests pass narrow ones, and
+    the per-op HIPT configuration enters here); otherwise the full-width
+    model at ``cfg.dtype`` (HIPT's and vit256's blocks as the fused block
+    kernel, as the JAX package builds them on its accelerator) with seeded
+    random weights, unless ``state_dict`` or the checkpoints in ``cfg``
+    (vit256_ckpt and vit4k_ckpt: DINO; resnet_ckpt: a reference,
+    torchvision or Histo ResNet .pth; levit_ckpt: an original-layout
+    LeViT) are given. f32 ResNet convolutions run without TF32 on the
+    card (models/resnet.py)."""
     from hipt_abmil_atec23_tpu_torch.models.convert import (
         load_dino_, load_torch_state_dict, load_vit_)
+    from hipt_abmil_atec23_tpu_torch.models.levit import (
+        levit_state_dict_from_torch, levit_texture_encoder)
+    from hipt_abmil_atec23_tpu_torch.models.resnet import (
+        load_resnet_, resnet18, resnet50_trunc)
     from hipt_abmil_atec23_tpu_torch.models.vit import vit_small
     device = resolve_device(device)
     dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
     gen = torch.Generator().manual_seed(seed)
+    normalize, plane_rung, dct_rung = "hipt", True, True
     if cfg.model_type in ("HIPT_4K", "hipt_4k"):
         if cfg.hipt_features not in HIPT_FEATURES:
             raise ValueError(f"hipt_features={cfg.hipt_features!r}: one of "
@@ -244,10 +265,27 @@ def build_encoder(cfg: EncoderConfig, *, device, model: nn.Module = None,
             if state_dict is None and cfg.vit256_ckpt:
                 load_vit_(model, load_torch_state_dict(cfg.vit256_ckpt))
         features, input_size, feat_dim = None, 256, model.feat_dim
-    elif cfg.model_type in NOT_PORTED_ENCODERS:
-        raise NotImplementedError(
-            f"encoder {cfg.model_type!r} is not ported yet (ROADMAP §A.11); "
-            f"the port has HIPT_4K and vit256")
+    elif cfg.model_type in ("resnet50", "resnet18"):
+        if model is None:
+            make = resnet50_trunc if cfg.model_type == "resnet50" \
+                else resnet18
+            model = make(dtype, generator=gen)
+            if state_dict is None and cfg.resnet_ckpt:
+                load_resnet_(model, load_torch_state_dict(
+                    cfg.resnet_ckpt, checkpoint_key=None))
+        features, input_size, feat_dim = None, 256, model.feat_dim
+        normalize = "imagenet"
+    elif cfg.model_type in ("levit_128s", "levit_256"):
+        if model is None:
+            model = levit_texture_encoder(cfg.model_type, dtype,
+                                          generator=gen)
+            if state_dict is None and cfg.levit_ckpt:
+                model.load_state_dict(levit_state_dict_from_torch(
+                    load_torch_state_dict(cfg.levit_ckpt,
+                                          checkpoint_key=None),
+                    cfg.model_type))
+        features, input_size, feat_dim = None, 224, model.feat_dim
+        normalize, plane_rung, dct_rung = "imagenet", False, False
     else:
         raise ValueError(f"unknown encoder {cfg.model_type!r}")
     if state_dict is not None:
@@ -255,7 +293,8 @@ def build_encoder(cfg: EncoderConfig, *, device, model: nn.Module = None,
     model = model.to(device).eval()
     return Encoder(model=model, batch_size=cfg.batch_size,
                    input_size=input_size, feat_dim=feat_dim, device=device,
-                   features=features)
+                   dct_rung=dct_rung, plane_rung=plane_rung,
+                   features=features, normalize=normalize)
 
 
 def _pad_to(batch: np.ndarray, k: int, bs: int) -> np.ndarray:
@@ -566,7 +605,8 @@ def encode_stream(jobs, encoder: Encoder, *, patch_level: int = 0,
     items = []
     for ji, (sid, slide, coords) in enumerate(jobs):
         use_yuv = (_plane_layout(slide, patch_level)
-                   if size % 2 == 0 and not pixels_only else None)
+                   if encoder.plane_rung and size % 2 == 0
+                   and not pixels_only else None)
         dct_ctx = None
         if (encoder.dct_rung and not pixels_only and size % 16 == 0
                 and len(coords) > 0):

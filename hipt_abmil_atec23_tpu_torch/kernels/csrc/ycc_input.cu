@@ -20,17 +20,24 @@
 //   c -= 128; 4:2:0: v = (3 c[i] + c[i -/+ 1]) * 0.25 along H (even / odd
 //   output row), then along W the same with v; JFIF colour
 //   r = y + 1.402 cr, g = (y - 0.344136 cb) - 0.714136 cr, b = y + 1.772 cb;
-//   clamp to 0..255; x * (1 / 127.5f) - 1 (PyTorch's CUDA true division by
-//   a scalar multiplies by its f32 reciprocal); round to bf16 or keep f32.
+//   clamp to 0..255; then one of two normalizes:
+//     HIPT:     x * (1 / 127.5f) - 1
+//     ImageNet: (x * (1 / 255.f) - mean[c]) / std[c], the division true
+//   (PyTorch's CUDA division by a Python scalar multiplies by the f32
+//   reciprocal, by a tensor it divides); round to bf16 or keep f32.
 //
 // Every product and sum is an explicit __fmul_rn / __fadd_rn, so nvcc
 // contracts nothing into an FMA and the kernel equals the plain version
 // run on the card bit for bit. The upsample's values are multiples of
 // 1/16 and exact in f32.
 //
+// The ImageNet mode is the ResNet and LeViT encoders' input (the JAX
+// package's imagenet_normalize(yuv_planes_to_rgb(...)), engine/encode.py
+// :346-357); its per-channel mean and std come in at launch.
+//
 // Bound on this card: device memory. Two 4096^2 regions read 50 MB of
 // planes and write 201 MB of bf16 input (403 MB in f32); ~29 f32
-// operations per pixel are far under that. The output leaves in 16-byte
+// operations per pixel (32 in the ImageNet mode) are far under that. The output leaves in 16-byte
 // stores (6 per thread in bf16, 12 in f32) where W % 16 == 0, scalar
 // stores otherwise.
 #include <cuda_bf16.h>
@@ -68,8 +75,17 @@ __device__ __forceinline__ float tri(float a, float b) {
   return __fmul_rn(__fadd_rn(__fmul_rn(3.0f, a), b), 0.25f);
 }
 
-__device__ __forceinline__ float norm(float v) {
+// per-channel ImageNet constants (unused in the HIPT mode)
+struct Affine {
+  float mean[3], std[3];
+};
+
+template <bool kImagenet>
+__device__ __forceinline__ float norm(float v, const Affine& a, int c) {
   v = fminf(fmaxf(v, 0.0f), 255.0f);
+  if (kImagenet)
+    return __fdiv_rn(__fadd_rn(__fmul_rn(v, 1.0f / 255.0f), -a.mean[c]),
+                     a.std[c]);
   return __fadd_rn(__fmul_rn(v, 1.0f / 127.5f), -1.0f);
 }
 
@@ -98,11 +114,12 @@ __device__ __forceinline__ void store1(__nv_bfloat16* d, float v) {
 }
 __device__ __forceinline__ void store1(float* d, float v) { *d = v; }
 
-template <typename OutT, bool k420>
+template <typename OutT, bool k420, bool kImagenet>
 __global__ void __launch_bounds__(kThreads)
 ycc_kernel(const uint8_t* __restrict__ yp, const uint8_t* __restrict__ cbp,
            const uint8_t* __restrict__ crp, OutT* __restrict__ out,
-           int64_t tasks, int H, int W, int CH, int CW, bool vec) {
+           int64_t tasks, int H, int W, int CH, int CW, bool vec,
+           Affine aff) {
   const int64_t t = int64_t(blockIdx.x) * kThreads + threadIdx.x;
   if (t >= tasks) return;
   const int chunks = (W + kPx - 1) / kPx;
@@ -157,9 +174,9 @@ ycc_kernel(const uint8_t* __restrict__ yp, const uint8_t* __restrict__ cbp,
     const float g = __fadd_rn(__fadd_rn(y[i], -__fmul_rn(0.344136f, u)),
                               -__fmul_rn(0.714136f, v));
     const float b = __fadd_rn(y[i], __fmul_rn(1.772f, u));
-    o[i * 3] = norm(r);
-    o[i * 3 + 1] = norm(g);
-    o[i * 3 + 2] = norm(b);
+    o[i * 3] = norm<kImagenet>(r, aff, 0);
+    o[i * 3 + 1] = norm<kImagenet>(g, aff, 1);
+    o[i * 3 + 2] = norm<kImagenet>(b, aff, 2);
   }
   OutT* dst = out + (rowid * W + x0) * 3;
   if (vec) {
@@ -171,21 +188,33 @@ ycc_kernel(const uint8_t* __restrict__ yp, const uint8_t* __restrict__ cbp,
   }
 }
 
+template <typename OutT, bool kImagenet>
+void launch_mode(const uint8_t* y, const uint8_t* cb, const uint8_t* cr,
+                 OutT* out, int64_t tasks, int H, int W, int CH, int CW,
+                 bool vec, const Affine& aff, cudaStream_t s) {
+  const dim3 grid(unsigned((tasks + kThreads - 1) / kThreads));
+  if (CH == H)
+    ycc_kernel<OutT, false, kImagenet><<<grid, kThreads, 0, s>>>(
+        y, cb, cr, out, tasks, H, W, CH, CW, vec, aff);
+  else
+    ycc_kernel<OutT, true, kImagenet><<<grid, kThreads, 0, s>>>(
+        y, cb, cr, out, tasks, H, W, CH, CW, vec, aff);
+}
+
 template <typename OutT>
 int launch(const uint8_t* y, const uint8_t* cb, const uint8_t* cr, OutT* out,
-           int n, int H, int W, int CH, int CW, cudaStream_t s) {
+           int n, int H, int W, int CH, int CW, bool imagenet,
+           const Affine& aff, cudaStream_t s) {
   const int64_t tasks = int64_t(n) * H * ((W + kPx - 1) / kPx);
   // 16-byte rows: whole 16-pixel chunks on 16-byte aligned planes
   const bool vec = W % kPx == 0 &&
                    ((uintptr_t(y) | uintptr_t(cb) | uintptr_t(cr) |
                      uintptr_t(out)) & 15) == 0;
-  const dim3 grid(unsigned((tasks + kThreads - 1) / kThreads));
-  if (CH == H)
-    ycc_kernel<OutT, false><<<grid, kThreads, 0, s>>>(y, cb, cr, out, tasks,
-                                                      H, W, CH, CW, vec);
+  if (imagenet)
+    launch_mode<OutT, true>(y, cb, cr, out, tasks, H, W, CH, CW, vec, aff, s);
   else
-    ycc_kernel<OutT, true><<<grid, kThreads, 0, s>>>(y, cb, cr, out, tasks,
-                                                     H, W, CH, CW, vec);
+    launch_mode<OutT, false>(y, cb, cr, out, tasks, H, W, CH, CW, vec, aff,
+                             s);
   return (int)cudaGetLastError();
 }
 
@@ -199,18 +228,22 @@ const char* ycc_input_error_string(int err) {
 
 // y uint8 [n, H, W]; cb, cr uint8 [n, CH, CW] with CW * 2 == W and
 // CH * 2 == H (4:2:0) or CH == H (4:2:2); out [n, H, W, 3], bf16 when
-// out_bf16 else f32. One launch on `stream`; returns cudaGetLastError().
+// out_bf16 else f32; the ImageNet normalize with the channels' mean and
+// std when imagenet, else HIPT's. One launch on `stream`; returns
+// cudaGetLastError().
 int ycc_input_launch(const uint8_t* y, const uint8_t* cb, const uint8_t* cr,
                      void* out, int out_bf16, int n, int H, int W, int CH,
-                     int CW, void* stream) {
+                     int CW, int imagenet, float m0, float m1, float m2,
+                     float s0, float s1, float s2, void* stream) {
   if (n <= 0 || H <= 0 || W <= 0 || CW * 2 != W ||
       (CH * 2 != H && CH != H))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const Affine aff{{m0, m1, m2}, {s0, s1, s2}};
   return out_bf16 ? launch(y, cb, cr, static_cast<__nv_bfloat16*>(out), n, H,
-                           W, CH, CW, s)
+                           W, CH, CW, imagenet != 0, aff, s)
                   : launch(y, cb, cr, static_cast<float*>(out), n, H, W, CH,
-                           CW, s);
+                           CW, imagenet != 0, aff, s);
 }
 
 }  // extern "C"

@@ -1,8 +1,9 @@
 """Checkpoint bridges for the port.
 
 The port's modules keep the reference's torch layouts (DINO ViTs,
-models/model_clam.py), so reference ``.pth``/``.pt`` files load as they are
-once their wrapper keys are stripped. The ``*_from_jax`` bridges invert the
+ResNets, models/model_clam.py), so reference ``.pth``/``.pt`` files load as
+they are once their wrapper keys are stripped (LeViT's folded layout has
+its own converters in models/levit.py). The ``*_from_jax`` bridges invert the
 JAX package's converters (hipt_abmil_atec23_tpu/models/convert.py), turning
 its parameter trees (nested dicts of arrays) into this package's state
 dicts, so one set of weights drives both packages.
@@ -162,6 +163,41 @@ def load_dino_(model, sd256: Mapping[str, torch.Tensor],
     load_vit_(model.vit256, sd256)
     load_vit_(model.vit4k, sd4k)
     return model
+
+
+# --------------------------------------------------------------------------
+# ResNet trunks (models/resnet.py)
+# --------------------------------------------------------------------------
+
+def resnet_state_dict_from_jax(variables: Mapping, layers=(3, 4, 6),
+                               bottleneck: bool = True
+                               ) -> Dict[str, torch.Tensor]:
+    """JAX ResNetTrunk variables ({'params', 'batch_stats'}) -> the
+    reference / torchvision state dict models.resnet.ResNetTrunk holds;
+    inverts the JAX package's resnet_params_from_torch (convert.py
+    :229-252). Flax conv kernels are HWIO, torch's OIHW."""
+    p, st = variables["params"], variables["batch_stats"]
+    sd: Dict[str, torch.Tensor] = {}
+
+    def convbn(pp, ss, conv, bn):
+        sd[f"{conv}.weight"] = _t(np.asarray(pp["conv"]["kernel"])
+                                  .transpose(3, 2, 0, 1))
+        sd[f"{bn}.weight"] = _t(pp["bn"]["scale"])
+        sd[f"{bn}.bias"] = _t(pp["bn"]["bias"])
+        sd[f"{bn}.running_mean"] = _t(ss["bn"]["mean"])
+        sd[f"{bn}.running_var"] = _t(ss["bn"]["var"])
+
+    convbn(p["stem"], st["stem"], "conv1", "bn1")
+    for li, n_blocks in enumerate(layers):
+        for bi in range(n_blocks):
+            name, tp = f"layer{li + 1}_{bi}", f"layer{li + 1}.{bi}"
+            for k in range(1, (3 if bottleneck else 2) + 1):
+                convbn(p[name][f"cb{k}"], st[name][f"cb{k}"],
+                       f"{tp}.conv{k}", f"{tp}.bn{k}")
+            if "down" in p[name]:
+                convbn(p[name]["down"], st[name]["down"],
+                       f"{tp}.downsample.0", f"{tp}.downsample.1")
+    return sd
 
 
 # --------------------------------------------------------------------------

@@ -7,10 +7,12 @@ upsample (jdsample.c h2v2/h2v1_fancy_upsample) and JFIF/BT.601 colour
 (jdcolor.c) in f32, clamped to 0..255.
 
 ``ycc_to_input`` goes one step further, to what the encoder reads: the
-HIPT normalize x / 127.5 - 1 in the encoder's dtype. On a CUDA tensor it
-is one launch of kernels/csrc/ycc_input.cu (the JAX package leaves the
-same steps to XLA, which fuses them); on a CPU tensor, or with
-``plain=True``, it is ``ycc_to_input_reference``.
+encoder's normalize in its dtype, HIPT's x / 127.5 - 1 (``"hipt"``) or
+torchvision's ImageNet one, (x / 255 - mean) / std per channel
+(``"imagenet"``, the ResNet and LeViT encoders'). On a CUDA tensor it is
+one launch of kernels/csrc/ycc_input.cu (the JAX package leaves the same
+steps to XLA, which fuses them); on a CPU tensor, or with ``plain=True``,
+it is ``ycc_to_input_reference``.
 """
 from __future__ import annotations
 
@@ -19,6 +21,10 @@ import ctypes
 import torch
 
 from hipt_abmil_atec23_tpu_torch.kernels import build
+from hipt_abmil_atec23_tpu_torch.models.resnet import (
+    IMAGENET_MEAN, IMAGENET_STD, imagenet_normalize)
+
+NORMALIZES = ("hipt", "imagenet")
 
 
 def _fancy_upsample_axis(c: torch.Tensor, axis: int) -> torch.Tensor:
@@ -87,18 +93,24 @@ def yuv_planes_to_rgb(y: torch.Tensor, cb: torch.Tensor,
 
 def ycc_to_input_reference(y: torch.Tensor, cb: torch.Tensor,
                            cr: torch.Tensor,
-                           dtype: torch.dtype = torch.bfloat16
-                           ) -> torch.Tensor:
+                           dtype: torch.dtype = torch.bfloat16,
+                           normalize: str = "hipt") -> torch.Tensor:
     """Plain PyTorch version of the colour kernel: uint8 planes (4:2:0 or
-    4:2:2) -> the encoder's normalized input [..., H, W, 3] in ``dtype``."""
-    return (yuv_planes_to_rgb(y, cb, cr) / 127.5 - 1.0).to(dtype)
+    4:2:2) -> the encoder's normalized input [..., H, W, 3] in ``dtype``.
+    ``normalize``: "hipt" (x / 127.5 - 1) or "imagenet"
+    (models/resnet.imagenet_normalize)."""
+    rgb = yuv_planes_to_rgb(y, cb, cr)
+    if normalize == "imagenet":
+        return imagenet_normalize(rgb).to(dtype)
+    return (rgb / 127.5 - 1.0).to(dtype)
 
 
 def _lib() -> ctypes.CDLL:
     lib = build.load("ycc_input")
     if not getattr(lib, "_hk_bound", False):
         vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.ycc_input_launch.argtypes = [vp] * 4 + [i] * 6 + [vp]
+        lib.ycc_input_launch.argtypes = ([vp] * 4 + [i] * 7
+                                         + [ctypes.c_float] * 6 + [vp])
         lib.ycc_input_launch.restype = i
         lib.ycc_input_error_string.argtypes = [i]
         lib.ycc_input_error_string.restype = ctypes.c_char_p
@@ -108,14 +120,19 @@ def _lib() -> ctypes.CDLL:
 
 def ycc_to_input(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor,
                  dtype: torch.dtype = torch.bfloat16, *,
-                 plain: bool = False) -> torch.Tensor:
+                 normalize: str = "hipt", plain: bool = False
+                 ) -> torch.Tensor:
     """uint8 Y [n, H, W] and Cb/Cr [n, H/2, W/2] (4:2:0) or [n, H, W/2]
-    (4:2:2) -> the encoder's input [n, H, W, 3] = RGB / 127.5 - 1 in
-    ``dtype`` (bf16 or f32). CUDA planes launch kernels/csrc/ycc_input.cu
-    once and raise on anything it does not take; CPU planes, or
-    ``plain``, run ``ycc_to_input_reference``."""
+    (4:2:2) -> the encoder's input [n, H, W, 3] in ``dtype`` (bf16 or
+    f32), normalized as ``normalize`` says ("hipt": RGB / 127.5 - 1;
+    "imagenet": (RGB / 255 - mean) / std). CUDA planes launch
+    kernels/csrc/ycc_input.cu once and raise on anything it does not take;
+    CPU planes, or ``plain``, run ``ycc_to_input_reference``."""
+    if normalize not in NORMALIZES:
+        raise ValueError(f"ycc_to_input: normalize {normalize!r}, expected "
+                         f"one of {NORMALIZES}")
     if plain or y.device.type == "cpu":
-        return ycc_to_input_reference(y, cb, cr, dtype)
+        return ycc_to_input_reference(y, cb, cr, dtype, normalize)
     dev = y.device
     for name, t in (("y", y), ("cb", cb), ("cr", cr)):
         if (t.device != dev or t.dtype != torch.uint8
@@ -139,6 +156,7 @@ def ycc_to_input(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor,
     err = lib.ycc_input_launch(
         y.data_ptr(), cb.data_ptr(), cr.data_ptr(), out.data_ptr(),
         int(dtype == torch.bfloat16), n, h, w, cb.shape[1], cb.shape[2],
+        int(normalize == "imagenet"), *IMAGENET_MEAN, *IMAGENET_STD,
         torch.cuda.current_stream(dev).cuda_stream)
     build.check(lib, "ycc_input_error_string", err, "ycc_to_input")
     ycc_to_input.launches += 1

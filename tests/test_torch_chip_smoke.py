@@ -410,3 +410,44 @@ def test_phase_explain_rehearsal(fault, explain_slide, monkeypatch):
     else:
         with pytest.raises(SystemExit, match="explain"):
             run()
+
+
+def test_patch_grid_cuts_row_major_patches():
+    """chip_smoke.patch_grid (the colour kernel's ImageNet-mode batch):
+    patch i * n + j is the plane's window at row i, column j."""
+    plane = np.arange(64 * 64, dtype=np.int32).reshape(64, 64)
+    got = chip_smoke.patch_grid(plane, 2, 16)
+    assert got.shape == (4, 16, 16) and got.flags.c_contiguous
+    for i in range(2):
+        for j in range(2):
+            np.testing.assert_array_equal(
+                got[i * 2 + j], plane[16 * i:16 * i + 16, 16 * j:16 * j + 16])
+
+
+def test_memory_online_dataset_draws_like_the_port(monkeypatch):
+    """chip_smoke's in-memory OnlineEncodingBagDataset (the card machine
+    has no h5py) draws and encodes as the port's dataset does over the
+    same coords and slide; encoder_gflop counts ResNet-18's 4.74 GFLOP
+    per 256^2 patch."""
+    from hipt_abmil_atec23_tpu_torch.data.online import (
+        OnlineEncodingBagDataset)
+    from hipt_abmil_atec23_tpu_torch.slideio.synthetic import he_like_planes
+    from hipt_abmil_atec23_tpu_torch.utils.config import (
+        BagConfig, EncoderConfig)
+    slide = chip_smoke.PlaneSlide(*he_like_planes(3, 512))
+    coords = chip_smoke.grid_coords(512, 256)
+    enc = chip_smoke.build_encoder(EncoderConfig(
+        model_type="resnet18", batch_size=2, dtype="float32"), device="cpu")
+    cfg = BagConfig(max_patches_per_slide=2)
+    mem = chip_smoke.MemoryOnlineDataset(["s"], np.zeros(1, np.int32), enc,
+                                         {"s": slide}, {"s": coords}, cfg)
+    monkeypatch.setattr(OnlineEncodingBagDataset, "_load_coords",
+                        lambda self, sid: (coords, {"patch_size": 256}))
+    monkeypatch.setattr(OnlineEncodingBagDataset, "_open_slide",
+                        lambda self, sid: slide)
+    ref = OnlineEncodingBagDataset(["s"], np.zeros(1, np.int32), enc, {},
+                                   "", cfg)
+    a, b = np.random.default_rng(1), np.random.default_rng(1)
+    np.testing.assert_array_equal(mem.get_bag(0, a), ref.get_bag(0, b))
+    assert mem.pad_size() == 8
+    assert abs(chip_smoke.encoder_gflop(enc.model, 256) - 4.737) < 1e-3

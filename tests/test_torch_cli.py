@@ -149,12 +149,6 @@ def test_cli_serve_once(work, tmp_path):
 
 
 @pytest.mark.parametrize("argv,error,match", [
-    (["encode", "--model_type", "resnet50"], NotImplementedError,
-     "ROADMAP §A.11"),
-    (["encode", "--model_type", "levit_256"], NotImplementedError,
-     "ROADMAP §A.11"),
-    (["serve", "--encoder", "resnet18"], NotImplementedError,
-     "ROADMAP §A.11"),
     (["serve", "--ckpt", "head.ckpt"], NotImplementedError, "ROADMAP §A.7"),
     (["serve", "--model_type", "transmil"], ValueError,
      "unknown model_type 'transmil'"),
@@ -163,12 +157,12 @@ def test_cli_serve_once(work, tmp_path):
     (["train", "--trial_parallel"], NotImplementedError, "ROADMAP §A.10"),
     (["train", "--fold_parallel"], NotImplementedError, "ROADMAP §A.10"),
     (["train", "--sampling"], NotImplementedError, "ROADMAP §A.9"),
-    (["train", "--extract_features"], NotImplementedError, "ROADMAP §A.11"),
     (["eval", "--use_sampling"], NotImplementedError, "ROADMAP §A.9")])
 def test_cli_refuses_what_is_not_ported(argv, error, match, tmp_path, work):
-    """Encoders, checkpoint formats and train / eval routes the port does
-    not have yet raise before any work, naming the ROADMAP item that ports
-    them; a head type that does not exist is refused before the first drain
+    """Checkpoint formats and train / eval routes the port does not have
+    yet raise before any work, naming the ROADMAP item that ports them
+    (every encoder runs: test_cli_runs_the_other_encoders); a head type
+    that does not exist is refused before the first drain
     with build_mil_model's ValueError (a daemon would log a failed drain
     and poll again). A clam_mb head is served now (``error`` None): a
     slide scored through HIPT_4K (f32, 512 px regions) from a
@@ -204,12 +198,88 @@ def test_cli_refuses_what_is_not_ported(argv, error, match, tmp_path, work):
     assert not os.path.exists(tmp_path / "o")
 
 
+@pytest.fixture(scope="module")
+def tiny(tmp_path_factory):
+    """One 1024^2 DEFLATE slide with a few tissue patches at 256 px, tiled
+    by the port's CLI."""
+    d = tmp_path_factory.mktemp("cli_tiny")
+    src = d / "slides"
+    src.mkdir()
+    write_synthetic_slide(str(src / "t.tif"), 1024, 1024, n_levels=2,
+                          compression=native.COMPRESSION_DEFLATE, seed=0)
+    assert cli.main(["tile", "--source", str(src), "--save_dir",
+                     str(d / "tiles"), *TILE, "--device", "cpu"]) == 0
+    return d, src
+
+
+@pytest.mark.parametrize("argv,dim", [
+    (["encode", "--model_type", "resnet50", "--float32"], 1024),
+    (["encode", "--model_type", "levit_256"], 512),
+    (["serve", "--encoder", "resnet18", "--float32"], 512)])
+def test_cli_runs_the_other_encoders(argv, dim, tiny, tmp_path):
+    """`encode` with full-width ResNet50-trunc (f32) and LeViT-256 (bf16),
+    and `serve --once` with ResNet-18 (f32) and a reference-layout .pt
+    CLAM_SB small_resnet18 head, on the CPU with seeded weights: a bag of
+    ``dim``-d finite features per slide over the tile stage's coords, and
+    a scored slide."""
+    d, src = tiny
+    from hipt_abmil_atec23_tpu_torch.slideio.patching import load_coords_h5
+    coords, _ = load_coords_h5(str(d / "tiles" / "patches" / "t.h5"))
+    assert len(coords) >= 2
+    feat_dir = tmp_path / "f"
+    if argv[0] == "encode":
+        assert cli.main(argv + [
+            "--data_h5_dir", str(d / "tiles"), "--data_slide_dir", str(src),
+            "--feat_dir", str(feat_dir), "--batch_size", "4",
+            "--device", "cpu"]) == 0
+    else:
+        inbox = tmp_path / "inbox"
+        inbox.mkdir()
+        os.link(src / "t.tif", inbox / "t.tif")
+        ckpt = str(tmp_path / "head.pt")
+        torch.save(build_mil_model("clam_sb", size_arg="small_resnet18")
+                   .state_dict(), ckpt)
+        out = tmp_path / "o"
+        feat_dir = out / "features"
+        assert cli.main(argv + [
+            "--slide_dir", str(inbox), "--out_dir", str(out), "--ckpt",
+            ckpt, "--model_size", "small_resnet18", "--patch_size", "256",
+            "--use_otsu", "--a_t", "1", "--batch_size", "4", "--once",
+            "--min_stable_s", "0", "--save_features", "--device",
+            "cpu"]) == 0
+        rec = json.load(open(out / "results" / "t.json"))
+        assert rec["status"] == "done" and rec["n_regions"] > 0
+        assert abs(sum(rec["p"]) - 1) < 1e-5
+        coords = None   # serve tiles the slide itself
+    feats, got = FeatureBagStore(str(feat_dir)).load_with_coords("t")
+    assert feats.shape == (len(got), dim) and np.isfinite(feats).all()
+    if coords is not None:
+        np.testing.assert_array_equal(got, coords)
+    else:
+        assert len(got) == rec["n_regions"]
+
+
+def test_train_extract_features_needs_the_slide_dirs(tmp_path):
+    """`train --extract_features` (online encoding, tests/
+    test_torch_online.py) stops before any work without --data_h5_dir and
+    --data_slide_dir, as the JAX CLI does."""
+    labels = tmp_path / "labels.csv"
+    pd.DataFrame({"case_id": ["s0", "s1"], "slide_id": ["s0", "s1"],
+                  "label": ["invalid", "effective"]}).to_csv(labels,
+                                                            index=False)
+    with pytest.raises(SystemExit, match="--data_h5_dir"):
+        cli.main(["train", "--csv_path", str(labels), "--feat_dir",
+                  str(tmp_path), "--results_dir", str(tmp_path / "o"),
+                  "--extract_features", "--device", "cpu"])
+    assert not os.path.exists(tmp_path / "o")
+
+
 def test_serve_loads_every_head(tmp_path):
     """serve_forever refuses an unknown head type before its first drain;
     _ensure_state builds and loads clam_mb and mil heads (binary and
     multi-class) from reference-layout .pt files, and _mil_bucketed scores
-    a bag through them (1024-d bags for mil, from a stand-in encoder: the
-    port has no 1024-d encoder yet)."""
+    a bag through them (1024-d bags for mil, from a stand-in encoder that
+    keeps the test off a full ResNet50-trunc)."""
     from hipt_abmil_atec23_tpu_torch.engine import serve
     from hipt_abmil_atec23_tpu_torch.utils.config import ModelConfig
     cfg = serve.ServeConfig(slide_dir=str(tmp_path), out_dir=str(tmp_path),

@@ -176,7 +176,10 @@ def test_hipt_feature_variants(variant, dim):
 def test_vit256_encoder_matches_jax(vit_params):
     """build_encoder('vit256') on 256 px patches against the JAX
     VisionTransformer at 1e-4; the full-width default is ViT-S (384-d);
-    ResNet and LeViT raise naming the ROADMAP item."""
+    the ResNet and LeViT encoders build at full width with the JAX
+    package's input_size and feat_dim (their features are held against
+    the JAX package in test_torch_resnet.py, test_torch_levit.py and
+    test_torch_encoders.py)."""
     x = np.random.default_rng(9).integers(0, 256, (3, 256, 256, 3),
                                           dtype=np.uint8)
     want = jax_vit_encoder(vit_params).apply(jnp.asarray(x))
@@ -187,10 +190,17 @@ def test_vit256_encoder_matches_jax(vit_params):
                                 device="cpu")
     assert (full.input_size, full.feat_dim) == (256, 384)
     assert all(b.use_fused_block for b in full.model.blocks)
-    for name in ("resnet50", "levit_128s"):
-        with pytest.raises(NotImplementedError, match="ROADMAP §A.11"):
-            encode.build_encoder(EncoderConfig(model_type=name),
-                                 device="cpu")
+    for name, size, dim, normalize, rungs in (
+            ("resnet50", 256, 1024, "imagenet", (True, True)),
+            ("resnet18", 256, 512, "imagenet", (True, True)),
+            ("levit_128s", 224, 384, "imagenet", (False, False)),
+            ("levit_256", 224, 512, "imagenet", (False, False))):
+        enc = encode.build_encoder(EncoderConfig(model_type=name),
+                                   device="cpu")
+        assert (enc.input_size, enc.feat_dim, enc.normalize,
+                (enc.plane_rung, enc.dct_rung)) == (size, dim, normalize,
+                                                    rungs), name
+        assert enc.model.input_dtype == torch.bfloat16
 
 
 @pytest.mark.parametrize("preset,tps,rung", [

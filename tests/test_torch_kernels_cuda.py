@@ -558,6 +558,33 @@ def test_colour_kernel_matches_plain(shape_y, shape_c, dtype, cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape_y,shape_c", [
+    ((2, 256, 256), (2, 128, 128)),    # 4:2:0 at the patch encoders' size
+    ((3, 34, 50), (3, 17, 25)),        # 4:2:0, odd chroma edges
+    ((1, 7, 38), (1, 7, 19))])         # 4:2:2, odd rows, ragged chunk
+def test_colour_kernel_imagenet_mode_matches_plain(shape_y, shape_c, dtype,
+                                                   cuda_device):
+    """The ImageNet mode keeps the plain version's operations too: the
+    reciprocal multiply of / 255, the subtraction of the mean tensor and
+    the true division by the std tensor; equal bit for bit."""
+    from hipt_abmil_atec23_tpu_torch.ops import yuv
+    g = torch.Generator().manual_seed(sum(shape_y) + 1)
+    y, cb, cr = (torch.randint(0, 256, s, generator=g,
+                               dtype=torch.uint8).to(cuda_device)
+                 for s in (shape_y, shape_c, shape_c))
+    before = yuv.ycc_to_input.launches
+    with torch.inference_mode():
+        got = yuv.ycc_to_input(y, cb, cr, dtype, normalize="imagenet")
+        want = yuv.ycc_to_input_reference(y, cb, cr, dtype, "imagenet")
+        hipt = yuv.ycc_to_input(y, cb, cr, dtype)
+    torch.cuda.synchronize()
+    assert yuv.ycc_to_input.launches == before + 2
+    assert got.shape == (*shape_y, 3) and got.dtype == dtype
+    assert torch.equal(got, want) and not torch.equal(got, hipt)
+
+
+@pytest.mark.cuda
 def test_colour_kernel_refuses_what_it_does_not_take(cuda_device):
     from hipt_abmil_atec23_tpu_torch.ops import yuv
     y = torch.zeros(2, 32, 64, dtype=torch.uint8, device=cuda_device)

@@ -87,3 +87,47 @@ def test_encoder_input_on_the_cpu_is_the_plain_version(rng):
     for plain in (False, True):
         assert torch.equal(yuv.ycc_to_input(*args, plain=plain), want)
     assert yuv.ycc_to_input.launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape_y,shape_c", [
+    ((2, 34, 50), (2, 17, 25)),        # 4:2:0, odd chroma edges
+    ((1, 32, 48), (1, 16, 24)),        # 4:2:0
+    ((2, 7, 38), (2, 7, 19)),          # 4:2:2, odd rows and chroma width
+    ((1, 32, 48), (1, 32, 24))])       # 4:2:2
+def test_imagenet_input_matches_jax(shape_y, shape_c, dtype, rng):
+    """The colour kernel's ImageNet mode (the ResNet and LeViT encoders'
+    input) in its plain version against the JAX package's
+    imagenet_normalize(yuv_planes_to_rgb(...)) (engine/encode.py:346-357):
+    atol 1e-5 in f32 (values within about +-2.7; the /255 and /std steps
+    in one order), within 1 bf16 ulp of the JAX value once rounded."""
+    from hipt_abmil_atec23_tpu.models.resnet import imagenet_normalize
+    y, cb, cr = _planes(rng, shape_y, shape_c)
+    want = np.asarray(imagenet_normalize(jyuv.yuv_planes_to_rgb(
+        jnp.asarray(y), jnp.asarray(cb), jnp.asarray(cr))))
+    args = [torch.from_numpy(a) for a in (y, cb, cr)]
+    got = yuv.ycc_to_input_reference(*args, dtype, "imagenet")
+    assert got.dtype == dtype and got.shape == want.shape
+    assert torch.equal(yuv.ycc_to_input(*args, dtype, normalize="imagenet"),
+                       got)
+    w = torch.from_numpy(want)
+    if dtype == torch.float32:
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
+    else:
+        assert bool(((got.float() - w).abs() <= _bf16_ulp(w)).all())
+
+
+def test_hipt_mode_is_the_default_and_unchanged(rng):
+    """normalize="hipt" is the default and still RGB / 127.5 - 1 of the
+    same planes bit for bit; an unknown mode raises."""
+    args = [torch.from_numpy(a) for a in _planes(rng, (2, 32, 48),
+                                                 (2, 16, 24))]
+    want = (yuv.yuv_planes_to_rgb(*args) / 127.5 - 1.0).to(torch.bfloat16)
+    for got in (yuv.ycc_to_input(*args),
+                yuv.ycc_to_input(*args, normalize="hipt"),
+                yuv.ycc_to_input_reference(*args)):
+        assert torch.equal(got, want)
+    assert not torch.equal(yuv.ycc_to_input(*args, normalize="imagenet"),
+                           want)
+    with pytest.raises(ValueError, match="normalize"):
+        yuv.ycc_to_input(*args, normalize="dino")
