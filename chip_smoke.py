@@ -143,6 +143,27 @@ Phases (any failure exits non-zero, and no result line is printed):
      slides (75 patches drawn per slide, ResNet50-trunc in the loop), ms
      per step; OnlineFeatureGather.take twice (the second encodes
      nothing). One ``resnet {...}`` line carries the numbers and the card.
+  13. DRAS sampling and the kNN probe (after phase 12): B.2 at the DRAS
+     subset [100, 1024] and bag [1104, 1024] shapes (CLAM_SB small)
+     against its plain version; knn_indices on a 256 px grid against
+     numpy's stable argsort (ties lower index first), and timed at
+     [100, 100000] against its first design (a top-k); then, DRAS at the
+     reference's defaults (100 x 10, 20 neighbours, 100 final, power
+     0.15, max), counts zeroed before each run and read after:
+     eval_sampling over 8 seeded slides of 20k-100k x 1024 with a planted
+     high-attention region, host loop on the card (exactly 11 pool
+     launches per slide), replayed on the CPU with the card's attention
+     (the same bags; attention within 1e-4, probabilities within 1e-5;
+     run free, the CPU parts from the card, ROADMAP section C); the device
+     loop (11 per slide; its planted shares against the host loop's
+     within 0.08 / 0.35; the loop alone under CUDA's sync debug mode
+     'error'); textural sampling on the 100k slide; online eval at the
+     defaults on a 32768^2 plane slide (phase 12's tiled 4 x 4, 16384
+     patches), encoding only the sampled patches through ResNet50-trunc;
+     train_fold_sampling on 16 slides of 2k-20k (10 launches per DRAS
+     pass); knn_cv_probe (mean, max, hipt_lgp) on phase 10's 60 bags, card
+     against CPU. One ``dras {...}`` line carries the numbers and the
+     card; B.2's record gains the DRAS shapes and launches.
   8. profile (only with --profile PATH): where one warm encode_stream's
      time goes, stage by stage (the colour and DCT decode stages through
      the kernels beside their plain chains), and torch.profiler kernel
@@ -3153,6 +3174,605 @@ def phase_resnet(dev, smi, planes, dct_slide, records) -> dict:
     launches = {k: plane_l[k] + dct_l[k] + rgb_l[k] + score_l[k]
                 for k in plane_l}
     log("resnet " + json.dumps(out))
+    return {"launches": launches, "owned": {},
+            "online": (enc, slides, pcoords)}
+
+
+# ----------------------------------------------------------------- phase 13
+# the reference's DRAS defaults (main.py:359-371; SamplingConfig's)
+DRAS_DEFAULTS = dict(samples_per_iteration=100, resampling_iterations=10,
+                     sampling_neighbors=20, final_sample_size=100,
+                     weight_smoothing=0.15, sampling_update="max",
+                     sampling_random=0.2, sampling_random_delta=0.02)
+DRAS_PROB_TOL = 1e-5     # card against CPU, eval_sampling's probabilities
+DRAS_RATIO_TOL = 0.35    # device loop against host loop: the JAX package's
+DRAS_SHARE_TOL = 0.08    # bounds for its own pair (tests/test_sampling.py:301)
+KNN_TOL = 1e-4           # probe embeddings, card against CPU (f32)
+
+
+def square_grid(n, step=256):
+    """The first n cells of a square grid of ``step`` px patches, row by
+    row, as [n, 2] (x, y) coords."""
+    side = int(math.ceil(math.sqrt(n)))
+    yx = np.stack(np.meshgrid(np.arange(side), np.arange(side),
+                              indexing="ij"), -1).reshape(-1, 2)[:n]
+    return (yx[:, ::-1] * step).astype(np.int64)
+
+
+def dras_head(size_arg, seed):
+    """A CLAM_SB ``size_arg`` head on the CPU at the reference init's scale
+    (``_reference_clam``) with one planted attention path: fc unit 0 reads
+    0.5 v for a seeded unit direction v, and the gated scorer's unit 0
+    passes it on to the score with weight 8, so a patch carrying +8 v
+    scores ~7 above the rest. Returns (head, v)."""
+    head = _reference_clam(size_arg, seed, torch.device("cpu"))
+    g = torch.Generator().manual_seed(seed + 1)
+    v = torch.randn(head.size[0], generator=g)
+    v /= v.norm()
+    fc, att = head.attention_net[0], head.attention_net[-1]
+    with torch.no_grad():
+        fc.weight[0], fc.bias[0] = 0.5 * v, 0.0
+        for lin in (att.attention_a[0], att.attention_b[0]):
+            lin.weight[0], lin.bias[0] = 0.0, 0.0
+            lin.weight[0, 0] = 1.0
+        att.attention_c.weight[0, 0] = 8.0
+    return head, v
+
+
+def dras_slides(n_slides, bag_range, d, seed, direction, dev, share=0.05):
+    """Seeded N(0, 1) bags of ``d``-d features on square 256 px grids (the
+    first slide at the top of ``bag_range``), drawn on ``dev``, each with
+    a planted region: a square block of ~``share`` of its patches whose
+    features carry +8 ``direction`` (``dras_head``'s attention path).
+    Returns (bags, coords, planted masks), dicts by slide id, on the
+    host."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    signal = 8.0 * direction.to(dev)
+    bags, coords, planted = {}, {}, {}
+    for i in range(n_slides):
+        n = bag_range[1] if i == 0 else int(rng.integers(*bag_range))
+        c = square_grid(n)
+        side = int(c[:, 0].max()) // 256 + 1
+        r = max(2, int(side * math.sqrt(share)))
+        x0, y0 = rng.integers(0, side - r, 2)
+        gx, gy = c[:, 0] // 256, c[:, 1] // 256
+        hit = (gx >= x0) & (gx < x0 + r) & (gy >= y0) & (gy < y0 + r)
+        bag = torch.randn(n, d, generator=g, device=dev)
+        bag[torch.from_numpy(np.flatnonzero(hit)).to(dev)] += signal
+        sid = f"dras_{i:02d}"
+        bags[sid], coords[sid], planted[sid] = bag.cpu().numpy(), c, hit
+    return bags, coords, planted
+
+
+def knn_reference(X, q, k):
+    """numpy: the JAX package's f32 distances, then a stable argsort (equal
+    distances lower index first)."""
+    X, q = X.astype(np.float32), q.astype(np.float32)
+    d2 = (q * q).sum(1)[:, None] - 2.0 * (q @ X.T) + (X * X).sum(1)[None]
+    return np.argsort(d2, axis=1, kind="stable")[:, :k]
+
+
+def knn_by_topk(sm, X, q, k):
+    """knn_indices' first design, timed against it: the k-th distance
+    from a top-k, every closer point and the lowest-index ties that fill
+    each row to k, then a stable sort of those k."""
+    d2 = sm._sq_dists(X, q)
+    kth = torch.topk(d2, k, dim=1, largest=False).values[:, -1:]
+    closer, tied = d2 < kth, d2 == kth
+    room = k - closer.sum(1, keepdim=True)
+    chosen = closer | (tied & (torch.cumsum(tied, 1) <= room))
+    rank = torch.arange(d2.shape[1], 0, -1, device=d2.device)
+    idx = torch.topk(torch.where(chosen, rank, torch.zeros_like(rank)), k,
+                     dim=1).indices
+    order = torch.sort(torch.gather(d2, 1, idx), dim=1, stable=True).indices
+    return torch.gather(idx, 1, order)
+
+
+def _recording(sm, name, dev, recs, secs):
+    """Wrap ``sm.name`` (a DRAS loop) to keep each result and its wall
+    time (synchronised); returns the original."""
+    real = getattr(sm, name)
+
+    def wrapped(*a, **k):
+        _sync(dev)
+        t0 = time.perf_counter()
+        res = real(*a, **k)
+        _sync(dev)
+        secs.append(time.perf_counter() - t0)
+        recs.append(res)
+        return res
+    setattr(sm, name, wrapped)
+    return real
+
+
+def _dras_eval(sm, cfg, scfg, ds, head, coords, where, device_loop=False,
+               seen=None, **kw):
+    """eval_sampling on ``where`` with every DRAS result and pass time
+    recorded, and with ``seen`` a list, every (subset, attention) the host
+    loop's attention function saw: (probs, counts, results, pass seconds,
+    wall seconds, launches)."""
+    name = "dras_sample_slide_device" if device_loop else "dras_sample_slide"
+    recs, secs = [], []
+    real = _recording(sm, name, where, recs, secs)
+    make = sm.make_attention_fn
+    if seen is not None:
+        def recording_make(model):
+            fn = make(model)
+
+            def attention_fn(subset):
+                out = fn(subset)
+                seen.append((np.array(subset), out))
+                return out
+            return attention_fn
+        sm.make_attention_fn = recording_make
+    zero_counts()
+    try:
+        _sync(where)
+        t0 = time.perf_counter()
+        probs, counts = sm.eval_sampling(
+            cfg, scfg, ds, head, coords_lookup=coords, seed=13,
+            device_loop=device_loop, device=where, **kw)
+        _sync(where)
+        wall = time.perf_counter() - t0
+    finally:
+        setattr(sm, name, real)
+        sm.make_attention_fn = make
+    return probs, counts, recs, secs, wall, read_counts()
+
+
+def dras_replay(sm, ds, coords, scfg, seen, head_cpu, seed=13):
+    """The host loop on the CPU, slide after slide from one numpy Generator
+    as eval_sampling draws, fed the card's attention (``seen``) in order:
+    (results, subsets that differ from the card's, max |attention| of the
+    CPU head on each subset against the card's)."""
+    cpu_attention = sm.make_attention_fn(head_cpu)
+    calls = iter(seen)
+    stats = {"subsets_differ": 0, "attn_err": 0.0}
+
+    def replay(subset):
+        card_subset, card_out = next(calls)
+        if not np.array_equal(np.asarray(subset), card_subset):
+            stats["subsets_differ"] += 1
+        stats["attn_err"] = max(stats["attn_err"], float(
+            np.abs(cpu_attention(subset) - card_out).max(initial=0.0)))
+        return card_out
+    rng = np.random.default_rng(seed)
+    results = [sm.dras_sample_slide(ds._full_bag(sid), coords[sid], replay,
+                                    scfg, rng, device=torch.device("cpu"))
+               for sid in ds.slide_ids]
+    return results, stats["subsets_differ"], stats["attn_err"]
+
+
+def host_loop_split(sm, head, bag, coords, res, scfg, dev, reps=5) -> dict:
+    """ms of one host-loop iteration's parts at the state a slide's DRAS
+    ended in: the subset's attention (to the card and back), the kNN (and
+    its indices back), update_sampling_weights and generate_sample_idxs
+    (numpy on the host)."""
+    attention = sm.make_attention_fn(head)
+    sel = np.asarray(res.all_sampled[-scfg.samples_per_iteration:])
+    X = torch.from_numpy(coords.astype(np.float32)).to(dev)
+    nbrs = sm.knn_indices(X, X[torch.from_numpy(sel).to(dev)],
+                          scfg.sampling_neighbors).cpu().numpy()
+    attn = attention(bag[sel])
+    rng = np.random.default_rng(0)
+    parts = {
+        "attention": lambda: attention(bag[sel]),
+        "knn": lambda: sm.knn_indices(X, X[torch.from_numpy(sel).to(dev)],
+                                      scfg.sampling_neighbors).cpu(),
+        "update_weights": lambda: sm.update_sampling_weights(
+            res.weights, attn, res.all_sampled, nbrs,
+            scfg.sampling_neighbors, power=scfg.weight_smoothing,
+            normalise=False),
+        "generate_idxs": lambda: sm.generate_sample_idxs(
+            len(bag), res.all_sampled, res.weights,
+            scfg.samples_per_iteration,
+            int(scfg.samples_per_iteration * scfg.sampling_random), rng)}
+    out = {}
+    for name, fn in parts.items():
+        fn()
+        _sync(dev)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        _sync(dev)
+        out[name] = 1e3 * (time.perf_counter() - t0) / reps
+    return out
+
+
+def _planted_stats(results, ids, planted):
+    """Means over slides of the planted region's share of the final draw,
+    its weight ratio (mean weight inside / outside) and its share of the
+    whole DRAS bag (final draw and every sampled patch)."""
+    share, ratio, bag = [], [], []
+    for res, sid in zip(results, ids):
+        hit, w = planted[sid], np.asarray(res.weights, np.float64)
+        share.append(hit[np.asarray(res.final_idxs)].mean())
+        ratio.append(w[hit].mean() / max(w[~hit].mean(), 1e-12))
+        bag.append(hit[res.bag_idxs].mean())
+    return float(np.mean(share)), float(np.mean(ratio)), float(np.mean(bag))
+
+
+def phase_dras(dev, smi, records, *, online=None, size_arg="small", d=1024,
+               eval_bags=(8, (20_000, 100_000)),
+               train_bags=(16, (2_000, 20_000)),
+               knn_bags=(60, (40, 600))) -> dict:
+    """DRAS sampling and the kNN probe (engine/sampling.py,
+    engine/knn_probe.py) at full width: CLAM_SB ``size_arg`` on ``d``-d
+    bags, DRAS at the reference's defaults. B.2 at the two DRAS shapes
+    against its plain version first (records["gated_pool"]["dras"]), then,
+    counts zeroed before each run and read after: eval_sampling's host
+    loop on the card (11 pool launches per slide; the CPU loop fed the
+    card's attention draws the same bags, probabilities within 1e-5), its
+    device loop (11 per slide; held to the host loop by distribution; the
+    loop alone under CUDA's sync debug mode 'error'), textural sampling on
+    the 100k slide, online encoding of only the sampled patches of a
+    32768^2 slide (phase 12's first, tiled 4 x 4) through phase 12's
+    ResNet50-trunc (``online``: its encoder, slides and coords), DRAS
+    training, and knn_cv_probe (mean, max, hipt_lgp) card against CPU."""
+    import copy
+    import types
+    from hipt_abmil_atec23_tpu_torch.data.bags import BagDataset
+    from hipt_abmil_atec23_tpu_torch.data.online import OnlineFeatureGather
+    from hipt_abmil_atec23_tpu_torch.data.splits import generate_kfold_splits
+    from hipt_abmil_atec23_tpu_torch.engine import knn_probe
+    from hipt_abmil_atec23_tpu_torch.engine import sampling as sm
+    from hipt_abmil_atec23_tpu_torch.utils.config import ExperimentConfig
+    cpu = torch.device("cpu")
+    out = {"card": smi}
+    launches = {k: 0 for k in COUNTERS}
+
+    def add(counts):
+        for k in launches:
+            launches[k] += counts[k]
+
+    head_cpu, direction = dras_head(size_arg, 41)
+    head = copy.deepcopy(head_cpu).to(dev)
+    scfg = sm.SamplingConfig(**DRAS_DEFAULTS)
+    n_iter, n_final = scfg.resampling_iterations, sm._bag_cap(scfg)
+
+    # 1. B.2 at the DRAS shapes, before the counts are zeroed
+    p = gap.params_from_clam(head)
+    g = torch.Generator().manual_seed(42)
+    pool_rows = {}
+    for what, n, valid in (("subset", scfg.samples_per_iteration, None),
+                           ("bag", n_final, n_final - 60)):
+        bag = torch.randn(n, d, generator=g).to(dev)
+        mask = None if valid is None else \
+            (torch.arange(n) < valid).to(dev)
+        ref_mask = torch.ones(n, dtype=torch.bool, device=dev) \
+            if mask is None else mask
+        with torch.inference_mode():
+            logits, scores = gap.gated_attention_pool(bag, p, mask=mask)
+            rl, rs = gap.gated_attention_pool_reference(bag, ref_mask, p)
+            keep = ref_mask
+            err = max((logits[0] - rl).abs().max().item(),
+                      (scores[keep] - rs[keep]).abs().max().item())
+            pool_rows[what] = _pool_row(
+                "gated_pool", p, bag, err,
+                lambda: gap.gated_attention_pool(bag, p, mask=mask),
+                lambda: gap.gated_attention_pool_reference(bag, ref_mask, p),
+                f"[{n},{d}] f32, L {head.size[1]}, DRAS {what}"
+                + ("" if mask is None else f" ({valid} valid)"))
+
+    # 2. eval_sampling, host loop: the card, then the CPU fed its attention
+    n_slides, bag_range = eval_bags
+    t0 = time.perf_counter()
+    bags, coords, planted = dras_slides(n_slides, bag_range, d, 43,
+                                        direction, dev)
+    ids = list(bags)
+    log(f"dras: {n_slides} slides of {min(map(len, bags.values()))}-"
+        f"{max(map(len, bags.values()))} x {d} drawn in "
+        f"{time.perf_counter() - t0:.1f} s")
+    # the tie order of knn_indices at the main path's shape: a 256 px grid
+    # (every distance exact in f32) against numpy's stable argsort
+    c0, k = coords[ids[0]], scfg.sampling_neighbors
+    q_idx = np.random.default_rng(44).choice(len(c0),
+                                             scfg.samples_per_iteration,
+                                             replace=False)
+    X0 = torch.from_numpy(c0.astype(np.float32)).to(dev)
+    q0 = X0[torch.from_numpy(q_idx).to(dev)]
+    got = sm.knn_indices(X0, q0, k).cpu().numpy()
+    want = knn_reference(c0, c0[q_idx], k)
+    bad_rows = int((got != want).any(1).sum())
+    # the same neighbours from the first design (a top-k), and the time
+    # of each
+    topk = lambda: knn_by_topk(sm, X0, q0, k)
+    bad_topk = int((topk().cpu().numpy() != want).any(1).sum())
+    out["knn_ms"] = dict(
+        stable_sort=gpu_timer(lambda: sm.knn_indices(X0, q0, k)),
+        topk=gpu_timer(topk))
+    log(f"dras knn_indices [{len(q_idx)} x {len(c0)}] on a 256 px grid "
+        f"against numpy's stable argsort: {bad_rows} rows differ (the top-k "
+        f"design: {bad_topk}); ms stable sort "
+        f"{out['knn_ms']['stable_sort']:.4f}, top-k "
+        f"{out['knn_ms']['topk']:.4f}")
+    del X0, q0
+    if bad_rows or bad_topk:
+        raise SystemExit("dras: knn_indices breaks distance ties otherwise "
+                         "than lax.top_k (lower index first)")
+    cfg = ExperimentConfig.from_dict({
+        "task": {"n_classes": 2}, "bags": {"max_patches_per_slide": 0},
+        "model": {"model_type": "clam_sb", "model_size": size_arg}})
+    ds = BagDataset(ids, np.arange(n_slides) % 2, MemoryBagStore(bags),
+                    cfg.bags)
+    seen = []
+    probs, counts, recs, secs, wall, lc = _dras_eval(
+        sm, cfg, scfg, ds, head, coords, dev, seen=seen)
+    add(lc)
+    # held: the CPU host loop fed the card's attention draws the card's
+    # bags, the CPU head's attention on each subset is the card's within
+    # the pool's tolerance, and the CPU head classifies each card bag as
+    # the card did. Run free, the CPU loop parts from the card: B.2's
+    # ~1e-6 rounding moves rng.choice's draws (ROADMAP section C)
+    per_slide = n_iter + 1
+    replayed, sub_differ, attn_err = dras_replay(sm, ds, coords, scfg, seen,
+                                                 head_cpu)
+    replay_differ = [sid for sid, r, c in zip(ids, recs, replayed)
+                     if not (np.array_equal(r.final_idxs, c.final_idxs)
+                             and r.all_sampled == c.all_sampled)]
+    perr = 0.0
+    with torch.no_grad():
+        for i, (sid, res) in enumerate(zip(ids, recs)):
+            bag, mask = sm._padded_bag(bags[sid], res.bag_idxs, n_final, d,
+                                       cpu)
+            logits = gap.apply_pooled(head_cpu, bag, mask).logits[0].numpy()
+            e = np.exp(logits - logits.max())
+            perr = max(perr, float(np.abs(e / e.sum() - probs[i]).max()))
+    sizes = [len(bags[s]) for s in ids]
+    big = int(np.argmax(sizes))
+    split = host_loop_split(sm, head, bags[ids[big]], coords[ids[big]],
+                            recs[big], scfg, dev)
+    out["host"] = dict(
+        ms_per_slide=1e3 * wall / n_slides,
+        ms_per_pass=[1e3 * t for t in secs],
+        ms_per_iteration=1e3 * sum(secs) / (n_slides * n_iter),
+        iteration_split_ms=split, launches=lc["gated_pool"],
+        prob_err_cpu=perr, attn_err_cpu=attn_err,
+        replay_differing=len(replay_differ),
+        patches_used=counts.tolist(), sizes=sizes)
+    log(f"dras (a) eval_sampling host loop, {n_slides} slides: "
+        f"{out['host']['ms_per_slide']:.1f} ms per slide on the card "
+        f"(DRAS passes {[round(1e3 * t, 1) for t in secs]} ms, "
+        f"{out['host']['ms_per_iteration']:.2f} ms per iteration; at N "
+        f"{sizes[big]} an iteration's parts "
+        f"{ {k: round(v, 3) for k, v in split.items()} } ms); "
+        f"{lc['gated_pool']} pool launches ({per_slide} per slide wanted)")
+    log(f"dras (a) card against CPU: the CPU loop fed the card's attention "
+        f"draws other bags on {len(replay_differ)} slides and other subsets "
+        f"{sub_differ} times; the CPU head's attention on the card's subsets "
+        f"max |d| {attn_err:.3g} (bound {POOL_TOL}), its probabilities on "
+        f"the card's bags max |d| {perr:.3g} (bound {DRAS_PROB_TOL})")
+    if lc["gated_pool"] != per_slide * n_slides:
+        raise SystemExit("dras host loop: the pool did not launch "
+                         f"{per_slide} times per slide")
+    if replay_differ or sub_differ or not attn_err <= POOL_TOL or \
+            not perr <= DRAS_PROB_TOL or not np.isfinite(probs).all():
+        raise SystemExit("dras host loop: the card disagrees with the CPU")
+
+    # 3. the device loop: launches, distribution against the host loop
+    dprobs, dcounts, drecs, dsecs, dwall, dl = _dras_eval(
+        sm, cfg, scfg, ds, head, coords, dev, device_loop=True)
+    add(dl)
+    (sh, rh, bh), (sd, rd, bd) = (_planted_stats(r, ids, planted)
+                                  for r in (recs, drecs))
+    base = float(np.mean([planted[s].mean() for s in ids]))
+    out["device"] = dict(ms_per_slide=1e3 * dwall / n_slides,
+                         ms_per_pass=[1e3 * t for t in dsecs],
+                         launches=dl["gated_pool"], share_host=sh,
+                         share_device=sd, ratio_host=rh, ratio_device=rd,
+                         bag_share_host=bh, bag_share_device=bd,
+                         planted_base=base)
+    if dev.type == "cuda":
+        # the loop alone on a card-resident bag: no host synchronisation
+        # (sync debug mode 'error' raises on one), then timed
+        sid = ids[0]
+        fb = torch.from_numpy(bags[sid]).to(dev)
+        X = torch.from_numpy(coords[sid].astype(np.float32)).to(dev)
+        n = len(fb)
+        loop = lambda: sm._dras_device_loop(
+            fb, X, head, n, scfg.samples_per_iteration,
+            scfg.final_sample_size, scfg.sampling_neighbors,
+            sm._eps_schedule(scfg), scfg.weight_smoothing,
+            torch.Generator(device=dev).manual_seed(3))
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            with torch.no_grad():
+                loop()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        with torch.no_grad():
+            out["device"]["loop_ms_100k"] = gpu_timer(loop, iters=5)
+            split = _launch_split(loop, calls=3)
+        # where its time goes: device ms per loop summed by the first 60
+        # characters of each kernel's name, the six largest, and in all
+        kernels = {}
+        for name, ms in split.items():
+            kernels[name[:60]] = kernels.get(name[:60], 0.0) + ms
+        top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
+        out["device"]["loop_busy_ms"] = sum(split.values())
+        out["device"]["loop_kernels_ms"] = dict(top)
+        out["device"]["loop_n"] = n
+        del fb, X
+    log(f"dras (b) eval_sampling device loop: "
+        f"{out['device']['ms_per_slide']:.1f} ms per slide (bag to the card "
+        f"included; passes {[round(1e3 * t, 1) for t in dsecs]} ms), the "
+        f"loop alone {out['device'].get('loop_ms_100k', float('nan')):.2f} "
+        f"ms at N {out['device'].get('loop_n')} with no host sync inside "
+        f"(device busy {out['device'].get('loop_busy_ms', float('nan')):.2f}"
+        f" ms: {out['device'].get('loop_kernels_ms')}); "
+        f"{dl['gated_pool']} pool launches; planted share of the final draw "
+        f"host {sh:.3f} device {sd:.3f} (bound {DRAS_SHARE_TOL}), weight "
+        f"ratio host {rh:.3f} device {rd:.3f} (bound {DRAS_RATIO_TOL}); "
+        f"share of the DRAS bag host {bh:.3f} device {bd:.3f}, base rate "
+        f"{base:.3f}")
+    if dl["gated_pool"] != per_slide * n_slides or \
+            not np.isfinite(dprobs).all():
+        raise SystemExit("dras device loop: the pool did not launch "
+                         f"{per_slide} times per slide")
+    if not (abs(sh - sd) <= DRAS_SHARE_TOL
+            and abs(rh - rd) <= DRAS_RATIO_TOL):
+        raise SystemExit("dras device loop: its draws do not match the host "
+                         "loop's in distribution")
+
+    # 4. textural sampling on the biggest slide: the bag itself as X
+    tds = BagDataset(ids[:1], np.zeros(1, np.int32), MemoryBagStore(bags),
+                     cfg.bags)
+    tex = sm.SamplingConfig(**DRAS_DEFAULTS, sampling_type="textural")
+    tprobs, _, _, tsecs, twall, tl = _dras_eval(sm, cfg, tex, tds, head,
+                                                coords, dev)
+    add(tl)
+    out["textural"] = dict(n=sizes[0], ms_per_slide=1e3 * twall,
+                           ms_per_pass=1e3 * tsecs[0],
+                           launches=tl["gated_pool"])
+    log(f"dras (c) textural, [{scfg.samples_per_iteration}, {d}] x [{d}, "
+        f"{sizes[0]}] per iteration: {1e3 * twall:.1f} ms for the slide "
+        f"(bag to the card included), {tl['gated_pool']} pool launches")
+    if tl["gated_pool"] != per_slide or not np.isfinite(tprobs).all():
+        raise SystemExit("dras textural: wrong launches or no result")
+    del bags, ds, tds
+
+    # 5. online at the defaults: only the sampled patches encoded (phase
+    # 12's encoder) of a 32768^2 slide, phase 12's first 8192^2 slide
+    # tiled 4 x 4 (each 256^2 patch lies inside one tile)
+    if online is None:
+        log("dras (d) online: skipped, no encoder from phase 12")
+    else:
+        enc, slides, _ = online
+        sl = next(iter(slides.values()))
+        t0 = time.perf_counter()
+        big = PlaneSlide(*(np.tile(a, (4, 4) + (1,) * (a.ndim - 2))
+                           for a in (sl.rgb, sl.y, sl.cb, sl.cr)))
+        side = big.level_dimensions[0][0]
+        pcoords = grid_coords(side, RESNET_PATCH)
+        log(f"dras (d) online: a {side}^2 slide of {len(pcoords)} patches "
+            f"tiled in {time.perf_counter() - t0:.1f} s")
+        genc, calls = _counting(enc)
+        gathers = {"big": OnlineFeatureGather(big, pcoords, genc,
+                                              region_size=RESNET_PATCH)}
+        ods = BagDataset(["big"], np.zeros(1, np.int32), None, cfg.bags)
+        oprobs, ocounts, _, osecs, owall, ol = _dras_eval(
+            sm, cfg, scfg, ods, head, {"big": pcoords}, dev,
+            feature_lookup=gathers)
+        add(ol)
+        encoded = [len(g._cache) for g in gathers.values()]
+        out["online"] = dict(encoded=encoded, patches=len(pcoords),
+                             used=ocounts.tolist(), encoder_calls=len(calls),
+                             ms_per_slide=1e3 * owall,
+                             ms_per_pass=1e3 * osecs[0],
+                             launches=ol["gated_pool"],
+                             ycc_input=ol["ycc_input"])
+        log(f"dras (d) online, ResNet50-trunc on the plane rung, DRAS at "
+            f"the defaults: patches encoded {encoded} of {len(pcoords)} "
+            f"(used {ocounts.tolist()}), {len(calls)} encoder calls, "
+            f"{1e3 * osecs[0]:.1f} ms of DRAS and {1e3 * owall:.1f} ms for "
+            f"the slide; launches {ol}")
+        if encoded != ocounts.tolist() or max(encoded) >= len(pcoords) or \
+                ol["gated_pool"] != per_slide or \
+                (dev.type == "cuda" and ol["ycc_input"] == 0) or \
+                not np.isfinite(oprobs).all():
+            raise SystemExit("dras online: not only the sampled patches were "
+                             "encoded, or the pool / colour kernel did not "
+                             "launch")
+        del big, gathers
+
+    # 6. training: one full-bag epoch, then two DRAS epochs
+    n_train, train_range = train_bags
+    tbags, tlabels = planted_bags(n_train, train_range, d, seed=45)
+    tcoords = {sid: square_grid(len(b)) for sid, b in tbags.items()}
+    tcfg = ExperimentConfig.from_dict({
+        "task": {"n_classes": 2}, "bags": {"max_patches_per_slide": 0},
+        "model": {"model_type": "clam_sb", "model_size": size_arg},
+        "train": {"lr": 2e-4, "max_epochs": 3, "early_stopping": False,
+                  "seed": 5}})
+    tids = list(tbags)
+    parts = (np.arange(0, n_train - 6), np.arange(n_train - 6, n_train - 3),
+             np.arange(n_train - 3, n_train))
+    tstore = MemoryBagStore(tbags)
+    sets = [BagDataset([tids[i] for i in part], tlabels[part], tstore,
+                       tcfg.bags) for part in parts]
+    tscfg = sm.SamplingConfig(**DRAS_DEFAULTS, no_sampling_epochs=1)
+    recs_t, secs_t = [], []
+    real = _recording(sm, "dras_sample_slide", dev, recs_t, secs_t)
+    zero_counts()
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            tcfg.results_dir = tmp
+            with _StepTimer(dev) as st:
+                t0 = time.perf_counter()
+                res = sm.train_fold_sampling(
+                    tcfg, tscfg, 0, *sets, np.bincount(tlabels, minlength=2),
+                    coords_lookup=tcoords, verbose=False, device=dev)
+                _sync(dev)
+                twall = time.perf_counter() - t0
+    finally:
+        sm.dras_sample_slide = real
+    trl = read_counts()
+    add(trl)
+    steps = [t for n, t in st.epochs if n == 1]
+    n_passes = len(parts[0]) * (tcfg.train.max_epochs - 1)
+    out["train"] = dict(
+        ms_per_pass=1e3 * float(np.mean(secs_t)),
+        ms_per_sampled_step=1e3 * float(np.mean(steps[1:] or steps)),
+        full_epoch_ms=1e3 * st.epochs[0][1], wall_s=twall,
+        launches=trl["gated_pool"],
+        history=[h["train_loss"] for h in res.history])
+    log(f"dras (e) train_fold_sampling, CLAM_SB {size_arg}, {n_train} slides "
+        f"of {min(map(len, tbags.values()))}-{max(map(len, tbags.values()))}"
+        f" x {d}: {out['train']['ms_per_pass']:.1f} ms per DRAS pass per "
+        f"slide, {out['train']['ms_per_sampled_step']:.2f} ms per sampled "
+        f"optimizer step [1, {n_final}, {d}], full-bag epoch "
+        f"{out['train']['full_epoch_ms']:.0f} ms, {twall:.1f} s in all; "
+        f"{trl['gated_pool']} pool launches; losses "
+        f"{[round(x, 4) for x in out['train']['history']]}")
+    if len(res.history) != 3 or not np.isfinite(res.test_probs).all() or \
+            trl["gated_pool"] != n_iter * n_passes or \
+            len(secs_t) != n_passes:
+        raise SystemExit("dras training: wrong launches or no result")
+    del tbags, tstore, sets
+
+    # 7. the kNN probe, card against CPU
+    n_knn, knn_range = knn_bags
+    kbags, klabels = planted_bags(n_knn, knn_range, 192, seed=21)
+    kstore = MemoryBagStore(kbags)
+    manifest = types.SimpleNamespace(slide_ids=np.array(list(kbags)),
+                                     labels=klabels, n_classes=2)
+    splits = generate_kfold_splits(klabels, 5, seed=1)
+    out["knn"] = {}
+    for method in ("mean", "max", "hipt_lgp"):
+        emb, probe = {}, {}
+        for where in (dev, cpu):
+            _sync(where)
+            t0 = time.perf_counter()
+            probe[where.type] = knn_probe.knn_cv_probe(
+                kstore, manifest, splits, k=20, method=method, device=where)
+            _sync(where)
+            took = time.perf_counter() - t0
+            emb[where.type] = (knn_probe.aggregate_slide_features(
+                kstore, manifest.slide_ids, method, device=where), took)
+        e_err = float(np.abs(emb[dev.type][0] - emb["cpu"][0]).max())
+        p_err = max(abs(probe[dev.type][k] - probe["cpu"][k])
+                    for k in probe["cpu"])
+        out["knn"][method] = dict(probe=probe[dev.type], emb_err=e_err,
+                                  probe_err=p_err,
+                                  ms=1e3 * emb[dev.type][1],
+                                  cpu_ms=1e3 * emb["cpu"][1])
+        log(f"dras (f) knn_cv_probe {method}, {n_knn} bags: "
+            f"{probe[dev.type]}; embeddings against the CPU max |d| "
+            f"{e_err:.3g} (bound {KNN_TOL}), probe {p_err:.3g}; "
+            f"{1e3 * emb[dev.type][1]:.1f} ms on the card, "
+            f"{1e3 * emb['cpu'][1]:.1f} on the CPU")
+        if not (e_err <= KNN_TOL and p_err <= 1e-6):
+            raise SystemExit(f"dras knn probe {method}: the card disagrees "
+                             "with the CPU")
+
+    records["gated_pool"]["dras"] = dict(
+        pool_rows, launches_host=lc["gated_pool"],
+        launches_device=dl["gated_pool"], launches_textural=tl["gated_pool"],
+        launches_online=out.get("online", {}).get("launches", 0),
+        launches_train=trl["gated_pool"])
+    log("dras " + json.dumps(out))
     return {"launches": launches, "owned": {}}
 
 
@@ -3204,6 +3824,7 @@ def main() -> int:
     xres = phase_explain(dev, smi, planes[0][0], res["jobs"][0][2],
                          res["feats"]["mem0"], res["clam"])
     rres = phase_resnet(dev, smi, planes, dct_slides[0], kres["records"])
+    dras = phase_dras(dev, smi, kres["records"], online=rres["online"])
     if args.profile:
         phase_profile(dev, res["encoder"], pres["encoder"], planes[0],
                       dct_slides[0], args.profile)
@@ -3211,7 +3832,8 @@ def main() -> int:
     set_launches(records, {**kres["paths"], "plane": res, "dct": dres,
                            "per_op": pres, "sharded": sres,
                            "encode_stage": eres, "train_eval": tres,
-                           "explain": xres, "resnet": rres})
+                           "explain": xres, "resnet": rres,
+                           "dras": dras})
     records["fused_block"].update(
         launches_vit256=eres["launches_vit256"],
         ms_256x264x384=eres.get("block_ms_vit256"))

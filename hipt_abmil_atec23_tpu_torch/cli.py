@@ -1,9 +1,9 @@
 """The port's command line: the tile, encode, train, eval, splits,
-bootstrap, count, serve and heatmap stages.
+bootstrap, count, serve, heatmap and knn stages.
 
     python -m hipt_abmil_atec23_tpu_torch.cli <tile|encode|train|eval|splits|
-                                               bootstrap|count|serve|heatmap>
-                                               [flags]
+                                               bootstrap|count|serve|heatmap|
+                                               knn> [flags]
 
 Each subcommand takes the JAX package's flags (hipt_abmil_atec23_tpu/cli.py)
 and writes the same artifacts, so either package reads what the other wrote:
@@ -15,9 +15,12 @@ blockmaps, ROIs and attention galleries. Checkpoints are the reference's
 default) or the CPU (``cpu``). Every encoder of the JAX package (HIPT_4K,
 vit256, resnet50, resnet18, levit_128s, levit_256) runs in ``encode``,
 ``serve``, ``heatmap`` and online training (``train --extract_features``).
-Choices the port does not have yet (flax MIL checkpoints, tuning, fold-
-and trial-parallel training, DRAS sampling) raise an error that names the
-ROADMAP item that ports them; knn, export and parity are not ported yet.
+DRAS sampling runs in ``train --sampling`` and ``eval --use_sampling``
+(host loop or ``--device_sampling``, spatial or textural, precomputed bags
+or ``--eval_features``). Choices the port does not have yet (flax MIL
+checkpoints, tuning, sampling tuning, fold- and trial-parallel training)
+raise an error that names the ROADMAP item that ports them; export and
+parity are not ported yet.
 """
 from __future__ import annotations
 
@@ -181,8 +184,63 @@ def _cmd_encode(a):
 
 # train / eval flags the port refuses, with the ROADMAP item that ports them
 _NOT_PORTED = {"tuning": "§A.10", "trial_parallel": "§A.10",
-               "fold_parallel": "§A.10", "sampling": "§A.9",
-               "use_sampling": "§A.9"}
+               "fold_parallel": "§A.10", "tune_sampling": "§A.10"}
+
+
+def _add_sampling(p, cmd: str) -> None:
+    """The DRAS flags (reference: main.py:358-371; eval.py's sampling
+    path); train adds the update rule, the full-bag epochs and the grid
+    initial sample."""
+    p.add_argument("--sampling_type", default="spatial",
+                   choices=["spatial", "textural"])
+    p.add_argument("--texture_model", default="resnet50",
+                   choices=["resnet50", "levit_128s"],
+                   help="kNN space for textural sampling: resnet50 reuses "
+                        "the MIL feature bags, levit_128s loads a second "
+                        "feature store (reference: main.py:366, "
+                        "sampling_utils.py:51-63)")
+    p.add_argument("--texture_feat_dir", default=None,
+                   help="feature dir holding levit_128s texture bags "
+                        "(reference: data_root_dir/levit_128s)")
+    p.add_argument("--sampling_average", action="store_true",
+                   help="use the running-average weight update instead of "
+                        "max (reference: main.py:367)")
+    p.add_argument("--device_sampling", action="store_true",
+                   help="run each slide's DRAS loop on the device with no "
+                        "host synchronisation inside it (statistically "
+                        "equivalent draws, not the reference's RNG stream)")
+    p.add_argument("--samples_per_iteration", type=int, default=100)
+    p.add_argument("--resampling_iterations", type=int, default=10)
+    p.add_argument("--sampling_random", type=float, default=0.2)
+    p.add_argument("--sampling_random_delta", type=float, default=0.02)
+    p.add_argument("--sampling_neighbors", type=int, default=20)
+    p.add_argument("--final_sample_size", type=int, default=100)
+    p.add_argument("--weight_smoothing", type=float, default=0.15)
+    p.add_argument("--fully_random", action="store_true")
+    if cmd == "train":
+        p.add_argument("--sampling_update", default="max",
+                       choices=["max", "average", "newest", "none"])
+        p.add_argument("--no_sampling_epochs", type=int, default=20)
+        p.add_argument("--grid_sample", action="store_true")
+
+
+def _sampling_cfg(a):
+    from hipt_abmil_atec23_tpu_torch.engine.sampling import SamplingConfig
+    extra = {}
+    if hasattr(a, "sampling_update"):
+        extra = dict(sampling_update=a.sampling_update,
+                     no_sampling_epochs=a.no_sampling_epochs,
+                     grid_initial_sample=a.grid_sample)
+    return SamplingConfig(
+        sampling_type=a.sampling_type, sampling_average=a.sampling_average,
+        samples_per_iteration=a.samples_per_iteration,
+        resampling_iterations=a.resampling_iterations,
+        sampling_random=a.sampling_random,
+        sampling_random_delta=a.sampling_random_delta,
+        sampling_neighbors=a.sampling_neighbors,
+        final_sample_size=a.final_sample_size,
+        weight_smoothing=a.weight_smoothing, fully_random=a.fully_random,
+        device_loop=a.device_sampling, **extra)
 
 
 def _add_train(sub):
@@ -247,8 +305,11 @@ def _add_train(sub):
     p.add_argument("--vit256_ckpt", default=None)
     p.add_argument("--vit4k_ckpt", default=None)
     p.add_argument("--resnet_ckpt", default=None)
+    # DRAS active sampling (reference: main.py:358-371)
+    p.add_argument("--sampling", action="store_true")
+    _add_sampling(p, "train")
     # not ported yet: each is refused, naming its ROADMAP item
-    for flag in ("sampling", "tuning", "trial_parallel", "fold_parallel"):
+    for flag in ("tuning", "trial_parallel", "fold_parallel"):
         p.add_argument(f"--{flag}", action="store_true",
                        help=f"not ported yet (ROADMAP {_NOT_PORTED[flag]})")
     _add_route_flags(p, "train")
@@ -258,19 +319,9 @@ def _add_train(sub):
 # the JAX CLI's flags that act only on a route above; accepted (with or
 # without a value) so its command lines parse, and unused
 _ROUTE_FLAGS = {
-    "train": ("sampling_type texture_model texture_feat_dir sampling_average "
-              "device_sampling samples_per_iteration resampling_iterations "
-              "sampling_random sampling_random_delta sampling_neighbors "
-              "final_sample_size weight_smoothing sampling_update "
-              "no_sampling_epochs fully_random grid_sample "
-              "num_tuning_samples tuning_output_file checkpoint_trials "
+    "train": ("num_tuning_samples tuning_output_file checkpoint_trials "
               "resume_tuning grace_period"),
-    "eval": ("device_sampling samples_per_iteration resampling_iterations "
-             "sampling_neighbors final_sample_size weight_smoothing "
-             "sampling_random sampling_random_delta fully_random "
-             "sampling_type texture_model texture_feat_dir sampling_average "
-             "tune_sampling num_tuning_samples eval_features data_slide_dir "
-             "data_h5_dir eval_encoder resnet_ckpt vit256_ckpt vit4k_ckpt")}
+    "eval": "num_tuning_samples"}
 
 
 def _add_route_flags(p, cmd: str) -> None:
@@ -382,6 +433,9 @@ def _cmd_train(a):
         return
 
     def run():
+        if a.sampling:
+            _train_sampling(a, cfg, manifest, store, device)
+            return
         if a.extract_features:
             _train_online(a, cfg, manifest, device)
             return
@@ -408,6 +462,70 @@ def _cmd_train(a):
             pstats.Stats(pr).sort_stats("cumulative").print_stats(25)
         else:
             run()
+
+
+def _train_sampling(a, cfg, manifest, store, device) -> None:
+    """DRAS training across folds (engine/sampling.train_fold_sampling);
+    spatial coords come from the h5 feature bags."""
+    import pandas as pd
+    from hipt_abmil_atec23_tpu_torch.engine.experiment import (
+        _write_fold_csv, fold_range, make_fold_datasets, summary_csv_name)
+    from hipt_abmil_atec23_tpu_torch.engine.sampling import (
+        train_fold_sampling)
+    scfg = _sampling_cfg(a)
+    coords_lookup = {}
+    for sid in manifest.slide_ids:
+        try:
+            _, coords = store.load_with_coords(sid)
+        except (FileNotFoundError, KeyError, OSError):
+            raise SystemExit(
+                f"--sampling needs h5 feature bags with coords "
+                f"(missing for {sid}); encode with h5 output")
+        coords_lookup[sid] = coords
+    texture_lookup = _build_texture_lookup(a, manifest.slide_ids)
+    rows = []
+    for fold in fold_range(cfg):
+        tr, va, te = make_fold_datasets(manifest, store, cfg, fold)
+        res = train_fold_sampling(
+            cfg, scfg, fold, tr, va, te, manifest.class_counts(),
+            coords_lookup=coords_lookup, texture_lookup=texture_lookup,
+            device=device)
+        _write_fold_csv(cfg.results_dir, res)
+        rows.append({"folds": fold, "test_auc": res.test_auc,
+                     "val_auc": res.val_auc, "test_acc": res.test_acc,
+                     "val_acc": res.val_acc})
+    summary = pd.DataFrame(rows)
+    summary.to_csv(os.path.join(cfg.results_dir, summary_csv_name(cfg)),
+                   index=False)
+    print(summary)
+
+
+def _build_texture_lookup(a, slide_ids):
+    """slide_id -> [N, Dt] LeViT texture features for textural DRAS.
+
+    Reference semantics (sampling_utils.py:51-63): texture_model=resnet50
+    reuses the MIL feature bags as the kNN space (the bag itself,
+    downstream); levit_128s loads a SECOND pre-extracted feature store
+    (reference: core_utils_sampling.py:327-337 reads
+    data_root_dir/levit_128s). Returns None unless that second store is
+    needed."""
+    if a.sampling_type != "textural" or a.texture_model != "levit_128s":
+        return None
+    if not a.texture_feat_dir:
+        raise SystemExit(
+            "--sampling_type textural with --texture_model levit_128s needs "
+            "--texture_feat_dir (encode the slides with the levit encoder "
+            "first: cli encode --model_type levit_128s)")
+    from hipt_abmil_atec23_tpu_torch.data.bags import FeatureBagStore
+    tstore = FeatureBagStore(a.texture_feat_dir)
+    lookup = {}
+    for sid in slide_ids:
+        try:
+            lookup[sid] = tstore.load_features(sid)
+        except (FileNotFoundError, KeyError, OSError):
+            raise SystemExit(f"texture feature bag missing for {sid!r} "
+                             f"under {a.texture_feat_dir}")
+    return lookup
 
 
 def _train_online(a, cfg, manifest, device) -> None:
@@ -488,9 +606,22 @@ def _add_eval(sub):
     p.add_argument("--folds", type=int, nargs="*", default=None)
     p.add_argument("--max_patches_per_slide", type=int, default=75)
     p.add_argument("--seed", type=int, default=1)
-    p.add_argument("--use_sampling", action="store_true",
-                   help="inference-time DRAS sampling: not ported yet "
-                        "(ROADMAP §A.9)")
+    # inference-time DRAS sampling (reference: eval.py --use_sampling path)
+    p.add_argument("--use_sampling", action="store_true")
+    _add_sampling(p, "eval")
+    p.add_argument("--tune_sampling", action="store_true",
+                   help=f"not ported yet (ROADMAP {_NOT_PORTED['tune_sampling']})")
+    # on-the-fly extraction of only the sampled patches
+    # (reference: --eval_features, eval_utils.py:231-260)
+    p.add_argument("--eval_features", action="store_true")
+    p.add_argument("--data_slide_dir", default=None)
+    p.add_argument("--data_h5_dir", default=None,
+                   help="tile-stage coords dir (required for --eval_features)")
+    p.add_argument("--eval_encoder", default="resnet50", choices=ENCODERS,
+                   help="encoder for --eval_features")
+    p.add_argument("--resnet_ckpt", default=None)
+    p.add_argument("--vit256_ckpt", default=None)
+    p.add_argument("--vit4k_ckpt", default=None)
     _add_route_flags(p, "eval")
     _add_device(p)
 
@@ -516,8 +647,121 @@ def _cmd_eval(a):
                           drop_out=a.drop_out),
         train=TrainConfig(k=a.k, seed=a.seed))
     manifest = SlideManifest.from_csv(a.csv_path, task.label_dict)
-    run_eval(cfg, manifest, FeatureBagStore(a.feat_dir), a.models_dir,
-             a.save_dir, splits=a.splits, folds=a.folds, device=device)
+    store = FeatureBagStore(a.feat_dir)
+    if a.use_sampling:
+        _eval_with_sampling(a, cfg, manifest, store, device)
+        return
+    run_eval(cfg, manifest, store, a.models_dir, a.save_dir,
+             splits=a.splits, folds=a.folds, device=device)
+
+
+def _resolve_slide_paths(slide_dir: str, slide_ids) -> dict:
+    """slide_id -> file path; matches any supported slide extension."""
+    from hipt_abmil_atec23_tpu_torch.slideio.pipeline import SLIDE_EXTS
+    out = {}
+    for sid in slide_ids:
+        for ext in SLIDE_EXTS:
+            p = os.path.join(slide_dir, sid + ext)
+            if os.path.exists(p):
+                out[sid] = p
+                break
+        else:
+            raise FileNotFoundError(
+                f"no slide file for {sid!r} in {slide_dir} "
+                f"(tried {SLIDE_EXTS})")
+    return out
+
+
+def _eval_with_sampling(a, cfg, manifest, store, device) -> None:
+    """DRAS inference-time evaluation (reference: eval.py sampling path +
+    eval_utils.summary_sampling): per fold, the fold's .pt head classifies
+    each slide's DRAS bag (engine/sampling.eval_sampling); writes
+    fold_k.csv and summary.csv as the JAX CLI does."""
+    import dataclasses
+    import pandas as pd
+    from hipt_abmil_atec23_tpu_torch.data.bags import BagDataset
+    from hipt_abmil_atec23_tpu_torch.engine import metrics as M
+    from hipt_abmil_atec23_tpu_torch.engine.checkpoint import ckpt_path
+    from hipt_abmil_atec23_tpu_torch.engine.experiment import (
+        make_fold_datasets)
+    from hipt_abmil_atec23_tpu_torch.engine.sampling import eval_sampling
+    from hipt_abmil_atec23_tpu_torch.explain.driver import load_mil_head
+
+    scfg = _sampling_cfg(a)
+    texture_lookup = _build_texture_lookup(a, manifest.slide_ids)
+    os.makedirs(a.save_dir, exist_ok=True)
+    folds = a.folds if a.folds else list(range(cfg.train.k))
+    # honor --splits like the plain eval path (reference eval.py evaluates
+    # the chosen split in its sampling mode too)
+    fold_te = {}
+    for fold in folds:
+        if a.splits == "all":
+            fold_te[fold] = BagDataset(manifest.slide_ids, manifest.labels,
+                                       store, cfg.bags)
+        else:
+            tr, va, te = make_fold_datasets(manifest, store, cfg, fold)
+            fold_te[fold] = {"train": tr, "val": va, "test": te}[a.splits]
+
+    feature_lookup = None
+    coords_lookup = {}
+    if a.eval_features:
+        # encode only the sampled patches on the fly; open only the slides
+        # the requested folds evaluate
+        if not (a.data_slide_dir and a.data_h5_dir):
+            raise SystemExit("--eval_features requires --data_slide_dir and "
+                             "--data_h5_dir")
+        from hipt_abmil_atec23_tpu_torch.data.online import (
+            build_feature_gathers)
+        from hipt_abmil_atec23_tpu_torch.engine.encode import build_encoder
+        from hipt_abmil_atec23_tpu_torch.utils.config import EncoderConfig
+        needed = sorted({sid for te in fold_te.values()
+                         for sid in te.slide_ids})
+        slide_paths = _resolve_slide_paths(a.data_slide_dir, needed)
+        encoder = build_encoder(EncoderConfig(
+            model_type=a.eval_encoder, resnet_ckpt=a.resnet_ckpt,
+            vit256_ckpt=a.vit256_ckpt, vit4k_ckpt=a.vit4k_ckpt),
+            device=device)
+        coords_dir = os.path.join(a.data_h5_dir, "patches")
+        if not os.path.isdir(coords_dir):
+            coords_dir = a.data_h5_dir
+        feature_lookup = build_feature_gathers(slide_paths, coords_dir,
+                                               encoder, needed)
+        coords_lookup = {sid: g.coords for sid, g in feature_lookup.items()}
+    else:
+        for sid in manifest.slide_ids:
+            _, coords_lookup[sid] = store.load_with_coords(sid)
+    bags_full = dataclasses.replace(cfg.bags, max_patches_per_slide=0)
+    rows = []
+    try:
+        for fold in folds:
+            te = fold_te[fold]
+            ds = BagDataset(te.slide_ids, te.labels, store, bags_full)
+            feat_dim = (feature_lookup[ds.slide_ids[0]].shape[1]
+                        if feature_lookup is not None
+                        else ds._full_bag(ds.slide_ids[0]).shape[1])
+            model = load_mil_head(ckpt_path(a.models_dir, fold), cfg.model,
+                                  cfg.task.n_classes, feat_dim, device)
+            probs, counts = eval_sampling(
+                cfg, scfg, ds, model, coords_lookup=coords_lookup,
+                texture_lookup=texture_lookup, seed=cfg.train.seed + fold,
+                feature_lookup=feature_lookup,
+                device_loop=a.device_sampling, device=device)
+            auc = M.auc_score(ds.labels, probs, cfg.task.n_classes)
+            rows.append({"folds": fold, "test_auc": auc,
+                         "test_acc": M.accuracy(ds.labels, probs.argmax(1)),
+                         "mean_patches_used": float(counts.mean())})
+            df = pd.DataFrame({"slide_id": ds.slide_ids, "Y": ds.labels,
+                               "Y_hat": probs.argmax(1)})
+            for c in range(cfg.task.n_classes):
+                df[f"p_{c}"] = probs[:, c]
+            df.to_csv(os.path.join(a.save_dir, f"fold_{fold}.csv"),
+                      index=False)
+            print(f"[eval-sampling] fold {fold}: auc {auc:.4f}")
+    finally:
+        for g in (feature_lookup or {}).values():
+            g.slide.close()
+    pd.DataFrame(rows).to_csv(os.path.join(a.save_dir, "summary.csv"),
+                              index=False)
 
 
 def _add_splits(sub):
@@ -584,6 +828,47 @@ def _cmd_bootstrap(a):
     if a.plot_roc:
         print(f"[bootstrap] ROC plot -> "
               f"{plot_roc_curves(a.dirs, a.folds, a.roc_plot_path)}")
+
+
+def _add_knn(sub):
+    p = sub.add_parser("knn", help="slide-level kNN probe over aggregated "
+                       "features (reference: HIPT_knn.py)")
+    p.add_argument("--task", default="treatment")
+    p.add_argument("--csv_path", required=True)
+    p.add_argument("--feat_dir", required=True)
+    p.add_argument("--k", type=int, default=20)
+    p.add_argument("--folds", type=int, default=5)
+    p.add_argument("--temperature", type=float, default=1.0)
+    p.add_argument("--agg", default="mean",
+                   choices=["mean", "max", "hipt_lgp"])
+    p.add_argument("--lgp_ckpt", default=None,
+                   help="HIPT_LGP_FC torch checkpoint for --agg hipt_lgp "
+                        "(reference: HIPT_knn.py:14 external HIPT repo)")
+    p.add_argument("--seed", type=int, default=1)
+    _add_device(p)
+
+
+def _cmd_knn(a):
+    from hipt_abmil_atec23_tpu_torch.data.bags import FeatureBagStore
+    from hipt_abmil_atec23_tpu_torch.data.manifest import SlideManifest
+    from hipt_abmil_atec23_tpu_torch.data.splits import generate_kfold_splits
+    from hipt_abmil_atec23_tpu_torch.data.tasks import get_task
+    from hipt_abmil_atec23_tpu_torch.device import resolve_device
+    from hipt_abmil_atec23_tpu_torch.engine.knn_probe import knn_cv_probe
+    device = resolve_device(a.device)
+    task = get_task(a.task)
+    manifest = SlideManifest.from_csv(a.csv_path, task.label_dict)
+    store = FeatureBagStore(a.feat_dir)
+    splits = generate_kfold_splits(manifest.labels, a.folds, seed=a.seed)
+    lgp_state = None
+    if a.lgp_ckpt:
+        from hipt_abmil_atec23_tpu_torch.models.convert import (
+            load_torch_state_dict)
+        lgp_state = load_torch_state_dict(a.lgp_ckpt, checkpoint_key=None)
+    out = knn_cv_probe(store, manifest, splits, k=a.k,
+                       temperature=a.temperature, method=a.agg,
+                       lgp_state=lgp_state, device=device)
+    print(json.dumps(out, indent=2))
 
 
 def _add_count(sub):
@@ -873,13 +1158,14 @@ def main(argv: Optional[List[str]] = None) -> int:
         description="WSI MIL pipeline on PyTorch + CUDA")
     sub = parser.add_subparsers(dest="cmd", required=True)
     for add in (_add_tile, _add_encode, _add_train, _add_eval, _add_splits,
-                _add_bootstrap, _add_count, _add_serve, _add_heatmap):
+                _add_bootstrap, _add_count, _add_serve, _add_heatmap,
+                _add_knn):
         add(sub)
     a = parser.parse_args(argv)
     {"tile": _cmd_tile, "encode": _cmd_encode, "train": _cmd_train,
      "eval": _cmd_eval, "splits": _cmd_splits, "bootstrap": _cmd_bootstrap,
      "count": _cmd_count, "serve": _cmd_serve,
-     "heatmap": _cmd_heatmap}[a.cmd](a)
+     "heatmap": _cmd_heatmap, "knn": _cmd_knn}[a.cmd](a)
     return 0
 
 

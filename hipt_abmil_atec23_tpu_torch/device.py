@@ -2,6 +2,8 @@
 own: callers pass one, and the CUDA entry points ask for it here."""
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -23,3 +25,15 @@ def resolve_device(device) -> torch.device:
         if device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
     return device
+
+
+@contextlib.contextmanager
+def true_f32():
+    """CUDA f32 matrix products without TF32 for the block's duration
+    (``torch.backends.cuda.matmul.allow_tf32`` restored after)."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev

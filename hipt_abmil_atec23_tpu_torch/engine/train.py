@@ -69,6 +69,8 @@ class StepFns:
 
 
 def _tensor(a, device) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):
+        return a.to(device, non_blocking=True)
     return torch.as_tensor(np.asarray(a)).to(device, non_blocking=True)
 
 
@@ -287,8 +289,7 @@ def train_fold(cfg, fold: int, train_ds: BagDataset, val_ds: BagDataset,
         load_params(cpath, model)
     optimizer = fns.tx(model.parameters())
     dev = next(model.parameters()).device
-    dropout_gen = torch.Generator(device=dev).manual_seed(
-        int(torch_generator(tc.seed, fold, 1).initial_seed()))
+    dropout_gen = torch_generator(tc.seed, fold, 1, device=dev)
 
     stopper = EarlyStopper(tc.min_epochs, tc.patience, tc.stop_epoch) \
         if tc.early_stopping else None

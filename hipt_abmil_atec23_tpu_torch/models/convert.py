@@ -306,3 +306,28 @@ def clam_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     return mil_state_dict_from_jax(params, "clam_sb",
                                    params["params"]["classifier"]["bias"]
                                    .shape[0])
+
+
+def hipt_lgp_state_dict_from_jax(params: Mapping, depth: int = 2
+                                 ) -> Dict[str, torch.Tensor]:
+    """The JAX package's HIPT_LGP global-branch params (hipt_mil.py, the
+    layout its ``hipt_lgp_params_from_torch`` makes) -> the reference's
+    state-dict names of models/hipt_mil.HIPTGlobalAggregator."""
+    sd = _linear_from_jax(params["phi"], "global_phi.0")
+    for i, layer in enumerate(params["layers"][:depth]):
+        p = f"global_transformer.layers.{i}"
+        sd[f"{p}.self_attn.in_proj_weight"] = _t(
+            layer["attn"]["in_proj_kernel"]).t().contiguous()
+        sd[f"{p}.self_attn.in_proj_bias"] = _t(layer["attn"]["in_proj_bias"])
+        sd.update(_linear_from_jax(layer["attn"]["out_proj"],
+                                   f"{p}.self_attn.out_proj"))
+        for name in ("linear1", "linear2"):
+            sd.update(_linear_from_jax(layer[name], f"{p}.{name}"))
+        for name in ("norm1", "norm2"):
+            sd.update(_ln_from_jax(layer[name], f"{p}.{name}"))
+    for jax_name, prefix in (("attn_a", "global_attn_pool.attention_a.0"),
+                             ("attn_b", "global_attn_pool.attention_b.0"),
+                             ("attn_c", "global_attn_pool.attention_c"),
+                             ("rho", "global_rho.0")):
+        sd.update(_linear_from_jax(params[jax_name], prefix))
+    return sd

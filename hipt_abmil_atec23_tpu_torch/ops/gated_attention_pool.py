@@ -300,6 +300,12 @@ def gated_attention_pool_partial(
 gated_attention_pool_partial.launches = 0  # kernel launches on CUDA
 
 
+def pool_eligible(model) -> bool:
+    """True for the heads the pool computes: a gated single-branch CLAM."""
+    return (getattr(model, "multi_branch", True) is False
+            and getattr(model, "gate", False) is True)
+
+
 def apply_pooled(model, bag: torch.Tensor,
                  mask: Optional[torch.Tensor] = None):
     """Full-bag deterministic MIL forward with pooled-kernel dispatch: a
@@ -315,9 +321,7 @@ def apply_pooled(model, bag: torch.Tensor,
     """
     from hipt_abmil_atec23_tpu_torch.models.abmil import MILOutput
 
-    eligible = (getattr(model, "multi_branch", True) is False
-                and getattr(model, "gate", False) is True)
-    if not eligible:
+    if not pool_eligible(model):
         return model(bag, mask)
     logits, scores = gated_attention_pool(bag, params_from_clam(model),
                                           mask=mask)

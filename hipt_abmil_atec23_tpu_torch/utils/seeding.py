@@ -30,9 +30,16 @@ def host_rng(root_seed: int, *stream: int) -> np.random.Generator:
     return np.random.default_rng(np.random.SeedSequence((root_seed, *stream)))
 
 
-def torch_generator(root_seed: int, *stream: int) -> torch.Generator:
-    """A CPU generator for the stream ``(root_seed, *stream)``, seeded from
-    the same SeedSequence as ``host_rng``."""
+def stream_seed(root_seed: int, *stream: int) -> int:
+    """A 63-bit seed for the stream ``(root_seed, *stream)``, from the same
+    SeedSequence as ``host_rng``."""
     seq = np.random.SeedSequence((root_seed, *stream))
-    return torch.Generator().manual_seed(
-        int(seq.generate_state(1, np.uint64)[0] >> np.uint64(1)))
+    return int(seq.generate_state(1, np.uint64)[0] >> np.uint64(1))
+
+
+def torch_generator(root_seed: int, *stream: int,
+                    device="cpu") -> torch.Generator:
+    """A generator on ``device`` for the stream ``(root_seed, *stream)``,
+    seeded from the same SeedSequence as ``host_rng``."""
+    return torch.Generator(device=device).manual_seed(
+        stream_seed(root_seed, *stream))

@@ -451,3 +451,60 @@ def test_memory_online_dataset_draws_like_the_port(monkeypatch):
     np.testing.assert_array_equal(mem.get_bag(0, a), ref.get_bag(0, b))
     assert mem.pad_size() == 8
     assert abs(chip_smoke.encoder_gflop(enc.model, 256) - 4.737) < 1e-3
+
+
+def _ties_high_first(X, queries, k, device=None):
+    """knn_indices with a planted fault: equal distances taken higher
+    index first."""
+    from hipt_abmil_atec23_tpu_torch.engine import sampling as sm
+    x = torch.as_tensor(X, dtype=torch.float32, device=device)
+    q = torch.as_tensor(queries, dtype=torch.float32, device=x.device)
+    d2 = sm._sq_dists(x, q)
+    idx = torch.sort(d2.flip(1), dim=1, stable=True).indices[:, :k]
+    return d2.shape[1] - 1 - idx
+
+
+@pytest.mark.parametrize("fault", [None, "ties_high_first"])
+def test_phase_dras_rehearsal(fault, monkeypatch):
+    """chip_smoke phase 13 on the CPU at small sizes (CLAM_SB
+    hipt_smaller on 192-d bags, three 1500-2500 patch slides for eval,
+    eight for training), with read_counts counting the pool's calls: it
+    passes on the port as it is (11 pool calls per slide on both DRAS
+    loops, 10 per DRAS pass in training), and stops at its tie-order
+    check on a knn_indices that keeps the higher index of equal
+    distances."""
+    from hipt_abmil_atec23_tpu_torch.engine import sampling as sm
+    from hipt_abmil_atec23_tpu_torch.ops import gated_attention_pool as gap
+    counts = {}
+    real = gap.gated_attention_pool
+
+    def counting(*a, **k):
+        counts["gated_pool"] = counts.get("gated_pool", 0) + 1
+        return real(*a, **k)
+
+    monkeypatch.setattr(gap, "gated_attention_pool", counting)
+    monkeypatch.setattr(chip_smoke, "zero_counts", counts.clear)
+    monkeypatch.setattr(chip_smoke, "read_counts", lambda: {
+        name: counts.get(name, 0) for name in chip_smoke.COUNTERS})
+    monkeypatch.setattr(chip_smoke, "gpu_timer",
+                        lambda fn, iters=10: (fn(), 0.0)[1])
+    if fault:
+        monkeypatch.setattr(sm, "knn_indices", _ties_high_first)
+    records = {"gated_pool": {}}
+    run = functools.partial(
+        chip_smoke.phase_dras, torch.device("cpu"), "cpu", records,
+        size_arg="hipt_smaller", d=192, eval_bags=(3, (1500, 2500)),
+        train_bags=(8, (1100, 1300)), knn_bags=(20, (20, 60)))
+    if fault:
+        with pytest.raises(SystemExit, match="ties"):
+            run()
+        return
+    res = run()
+    # eval: host loop, device loop, textural; training: 2 slides x 2 DRAS
+    # epochs x 10 iterations
+    assert res["launches"]["gated_pool"] == 3 * 11 + 3 * 11 + 11 + 2 * 2 * 10
+    dras = records["gated_pool"]["dras"]
+    assert (dras["launches_host"], dras["launches_device"],
+            dras["launches_textural"], dras["launches_train"]) == \
+        (33, 33, 11, 40)
+    assert {"subset", "bag"} <= set(dras)

@@ -8,8 +8,10 @@ package's write_config output for the same flags), and ``splits -> train
 -> eval -> bootstrap`` and ``count`` on synthetic feature bags (the same
 file names and columns; the JAX CLI's eval reads the port's checkpoints).
 Every refusal names the ROADMAP item that ports what is refused."""
+import contextlib
 import csv
 import dataclasses
+import io
 import json
 import os
 
@@ -156,12 +158,15 @@ def test_cli_serve_once(work, tmp_path):
     (["train", "--tuning"], NotImplementedError, "ROADMAP §A.10"),
     (["train", "--trial_parallel"], NotImplementedError, "ROADMAP §A.10"),
     (["train", "--fold_parallel"], NotImplementedError, "ROADMAP §A.10"),
-    (["train", "--sampling"], NotImplementedError, "ROADMAP §A.9"),
-    (["eval", "--use_sampling"], NotImplementedError, "ROADMAP §A.9")])
+    (["train", "--sampling", "--tuning"], NotImplementedError,
+     "ROADMAP §A.10"),
+    (["eval", "--use_sampling", "--tune_sampling"], NotImplementedError,
+     "ROADMAP §A.10")])
 def test_cli_refuses_what_is_not_ported(argv, error, match, tmp_path, work):
     """Checkpoint formats and train / eval routes the port does not have
     yet raise before any work, naming the ROADMAP item that ports them
-    (every encoder runs: test_cli_runs_the_other_encoders); a head type
+    (every encoder runs: test_cli_runs_the_other_encoders; DRAS sampling
+    runs, but not its tuning: test_cli_sampling_and_knn); a head type
     that does not exist is refused before the first drain
     with build_mil_model's ValueError (a daemon would log a failed drain
     and poll again). A clam_mb head is served now (``error`` None): a
@@ -439,3 +444,158 @@ def test_cli_train_and_eval_need_a_card_by_default(tmp_path):
             cli.main(argv + ["--csv_path", "x.csv", "--feat_dir",
                              str(tmp_path)])
     assert not os.path.exists(tmp_path / "o")
+
+
+@pytest.fixture(scope="module")
+def dras_bags(tmp_path_factory):
+    """12 synthetic 192-d bags of 200 or 201 instances (two shapes for the
+    JAX package's HIPT_LGP aggregator to compile) as h5 feature bags with
+    256 px grid coords (what --sampling reads), their labels.csv, and a
+    16-d texture store (h5) for --texture_model levit_128s."""
+    from hipt_abmil_atec23_tpu_torch.data.synthetic import make_synthetic_bags
+    d = tmp_path_factory.mktemp("dras")
+    manifest, store = make_synthetic_bags(str(d / "feats"), n_slides=12,
+                                          feat_dim=192, bag_range=(200, 202),
+                                          signal=1.5, signal_fraction=0.4,
+                                          seed=2)
+    grid = np.stack(np.meshgrid(np.arange(20), np.arange(13)), -1
+                    ).reshape(-1, 2) * 256
+    tex = FeatureBagStore(str(d / "tex"))
+    rng = np.random.default_rng(3)
+    for sid in manifest.slide_ids:
+        f = store.load_features(sid)
+        os.remove(store.npy_path(sid))
+        store.save(sid, f, coords=grid[:len(f)], formats=("h5",))
+        tex.save(sid, rng.normal(size=(len(f), 16)).astype(np.float32),
+                 formats=("h5",))
+    return d
+
+
+DRAS = ["--samples_per_iteration", "16", "--resampling_iterations", "2",
+        "--sampling_neighbors", "6", "--final_sample_size", "16"]
+
+
+def test_cli_sampling_and_knn(dras_bags, tmp_path):
+    """train --sampling, eval --use_sampling (host loop, --device_sampling,
+    textural over a texture store) and knn (mean, max, hipt_lgp with and
+    without --lgp_ckpt) through both CLIs on one folder of h5 bags with
+    coords. train writes the JAX CLI's files and columns; eval of one head
+    (JAX init, as .msgpack for the JAX CLI and .pt for the port) gives the
+    JAX CLI's fold probabilities within 1e-5 and the same patch counts on
+    the host loop, finite probabilities on the device loop; knn prints the
+    JAX CLI's numbers within 1e-6."""
+    import jax
+    import jax.numpy as jnp
+    from hipt_abmil_atec23_tpu.engine.checkpoint import save_params
+    from hipt_abmil_atec23_tpu.models import build_mil_model as jbuild
+    from hipt_abmil_atec23_tpu_torch.models.convert import (
+        hipt_lgp_state_dict_from_jax, mil_state_dict_from_jax)
+    from hipt_abmil_atec23_tpu_torch.models.hipt_mil import (
+        init_hipt_lgp_params)
+    csv_path = str(dras_bags / "feats" / "labels.csv")
+    feats = str(dras_bags / "feats")
+    out = {k: str(tmp_path / k) for k in ("jax", "port")}
+    train = ["train", "--csv_path", csv_path, "--feat_dir", feats, "--k",
+             "3", "--k_end", "1", "--max_epochs", "2", "--min_epochs", "1",
+             "--no_early_stopping", "--sampling", "--no_sampling_epochs",
+             "1", *DRAS]
+    _run_both(train + ["--results_dir", out["jax"] + "/results"],
+              train + ["--results_dir", out["port"] + "/results"])
+    assert os.path.exists(out["port"] + "/results/s_0_checkpoint.pt")
+    for n in ("summary_partial_0_1.csv", "fold_0.csv"):
+        p = pd.read_csv(f"{out['port']}/results/{n}")
+        assert list(p.columns) == \
+            list(pd.read_csv(f"{out['jax']}/results/{n}").columns)
+    assert np.isfinite(p[["p_0", "p_1"]].values).all()
+
+    jm = jbuild("clam_sb", size_arg="hipt_smaller", n_classes=2)
+    params = jm.init(jax.random.PRNGKey(4), jnp.zeros((8, 192)), None)
+    save_params(out["jax"] + "/head/s_0_checkpoint.msgpack", params)
+    os.makedirs(out["port"] + "/head")
+    torch.save(mil_state_dict_from_jax(params),
+               out["port"] + "/head/s_0_checkpoint.pt")
+    ev = ["eval", "--use_sampling", "--csv_path", csv_path, "--feat_dir",
+          feats, "--splits", "all", "--folds", "0", *DRAS]
+    for what, extra in (("spatial", []),
+                        ("textural", ["--sampling_type", "textural",
+                                      "--texture_model", "levit_128s",
+                                      "--texture_feat_dir",
+                                      str(dras_bags / "tex")])):
+        _run_both(ev + extra + ["--models_dir", out["jax"] + "/head",
+                                "--save_dir", f"{out['jax']}/{what}"],
+                  ev + extra + ["--models_dir", out["port"] + "/head",
+                                "--save_dir", f"{out['port']}/{what}"])
+        p, j = (pd.read_csv(f"{out[k]}/{what}/fold_0.csv")
+                for k in ("port", "jax"))
+        assert list(p.columns) == list(j.columns)
+        assert list(p["slide_id"]) == list(j["slide_id"])
+        np.testing.assert_allclose(p[["p_0", "p_1"]].values,
+                                   j[["p_0", "p_1"]].values, atol=1e-5)
+        ps, js = (pd.read_csv(f"{out[k]}/{what}/summary.csv")
+                  for k in ("port", "jax"))
+        assert list(ps.columns) == list(js.columns)
+        assert ps["mean_patches_used"][0] == js["mean_patches_used"][0]
+    assert cli.main(ev + ["--device_sampling", "--models_dir",
+                          out["port"] + "/head", "--save_dir",
+                          out["port"] + "/device", "--device", "cpu"]) == 0
+    p = pd.read_csv(out["port"] + "/device/fold_0.csv")
+    assert len(p) == 12
+    np.testing.assert_allclose(p[["p_0", "p_1"]].values.sum(1), 1, atol=1e-5)
+    with pytest.raises(SystemExit, match="texture_feat_dir"):
+        cli.main(ev + ["--sampling_type", "textural", "--texture_model",
+                       "levit_128s", "--models_dir", out["port"] + "/head",
+                       "--save_dir", str(tmp_path / "x"), "--device", "cpu"])
+
+    # a HIPT_LGP_FC checkpoint: xavier-scale global branch (other weights
+    # than the checkpoint-free default's) beside a local-branch key; an
+    # N(0, 0.1) one makes near-tied embeddings whose neighbour order f32
+    # rounding decides (tests/test_torch_knn_probe.py, ROADMAP §C)
+    lgp = str(tmp_path / "lgp.pt")
+    sd = hipt_lgp_state_dict_from_jax(
+        init_hipt_lgp_params(np.random.default_rng(1)))
+    sd["local_phi.0.weight"] = torch.zeros(192, 384)
+    torch.save(sd, lgp)
+    for agg in (["mean"], ["max"], ["hipt_lgp"], ["hipt_lgp", "--lgp_ckpt",
+                                                    lgp]):
+        knn = ["knn", "--csv_path", csv_path, "--feat_dir", feats, "--k",
+               "5", "--folds", "3", "--agg", *agg]
+        res = []
+        for main, extra in ((jcli.main, []), (cli.main, ["--device",
+                                                         "cpu"])):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                assert main(knn + extra) == 0
+            res.append(json.loads(buf.getvalue()))
+        assert res[0].keys() == res[1].keys()
+        for key in res[0]:
+            assert abs(res[0][key] - res[1][key]) <= 1e-6, (agg, res)
+
+
+def test_cli_eval_sampling_encodes_the_sampled_patches(tiny, tmp_path):
+    """eval --use_sampling --eval_features: only the patches DRAS samples
+    are read from the slide and encoded (ResNet-18, f32 on the CPU) for a
+    reference-layout .pt CLAM_SB head at ResNet-18 width."""
+    d, src = tiny
+    from hipt_abmil_atec23_tpu_torch.slideio.patching import load_coords_h5
+    n = len(load_coords_h5(str(d / "tiles" / "patches" / "t.h5"))[0])
+    csv_path = str(tmp_path / "labels.csv")
+    pd.DataFrame({"case_id": ["c0"], "slide_id": ["t"], "label": [1]}
+                 ).to_csv(csv_path, index=False)
+    heads = tmp_path / "heads"
+    heads.mkdir()
+    torch.save(build_mil_model("clam_sb", size_arg="tinier2_resnet18")
+               .state_dict(), heads / "s_0_checkpoint.pt")
+    assert n >= 6
+    assert cli.main([
+        "eval", "--use_sampling", "--eval_features", "--csv_path", csv_path,
+        "--feat_dir", str(tmp_path / "none"), "--models_dir", str(heads),
+        "--save_dir", str(tmp_path / "o"), "--splits", "all", "--folds", "0",
+        "--model_size", "tinier2_resnet18", "--eval_encoder", "resnet18",
+        "--data_slide_dir", str(src), "--data_h5_dir", str(d / "tiles"),
+        "--samples_per_iteration", "1", "--resampling_iterations", "2",
+        "--sampling_neighbors", "3", "--final_sample_size", "2",
+        "--device", "cpu"]) == 0
+    row = pd.read_csv(tmp_path / "o" / "fold_0.csv").iloc[0]
+    assert row["slide_id"] == "t" and abs(row["p_0"] + row["p_1"] - 1) < 1e-5
+    used = pd.read_csv(tmp_path / "o" / "summary.csv")["mean_patches_used"][0]
+    assert used == 4 < n
