@@ -164,6 +164,26 @@ Phases (any failure exits non-zero, and no result line is printed):
      pass); knn_cv_probe (mean, max, hipt_lgp) on phase 10's 60 bags, card
      against CPU. One ``dras {...}`` line carries the numbers and the
      card; B.2's record gains the DRAS shapes and launches.
+  14. tuning, trial- and fold-parallel training, flax heads (after phase
+     13), on phase 10's 60 bags in the winning configuration, counts
+     zeroed before each part and read after it: (a) run_tuning, 4 trials
+     of the default space, max_epochs 6, grace 2, trial checkpoints kept
+     (the last restores each trial's final validation loss within 1e-6);
+     (b) run_trials_parallel, 8 lanes with dropout 0, held to each lane
+     run alone from the same initial weights and to the 8 lanes on the
+     CPU within 1e-5 per epoch; (c) run_tuning_hetero over 16 trials in
+     two buckets beside sequential run_tuning on the same trials (times
+     recorded, no order asserted); (d) train_folds_parallel, k = 5, the
+     winning configuration (time, summary), then dropout 0 against
+     sequential train_fold (per-epoch losses within 1e-5, the same stops);
+     (e) tune_sampling_params, 4 trials on phase 13's 8 slides: exactly
+     8 x (iterations + 1) B.2 launches per trial, the best trial's AUC
+     equal to a rerun of eval_sampling; (f) a flax CLAM_SB head written by
+     the port's writer (no flax) loaded by serve (_ensure_state +
+     _mil_bucketed; serve_once needs files the card machine cannot read),
+     evaluate_fold and the heatmap driver's loader, against the .pt that
+     export writes of it (within 1e-6). One ``tune {...}`` line carries
+     the numbers and the card; B.2's record gains phase 14's launches.
   8. profile (only with --profile PATH): where one warm encode_stream's
      time goes, stage by stage (the colour and DCT decode stages through
      the kernels beside their plain chains), and torch.profiler kernel
@@ -3776,6 +3796,374 @@ def phase_dras(dev, smi, records, *, online=None, size_arg="small", d=1024,
     return {"launches": launches, "owned": {}}
 
 
+# ------------------------------------------------------------------ phase 14
+LANE_TOL = 1e-5          # stacked lanes / folds against one-lane,
+                         # sequential and CPU runs (the CPU tests' bound)
+RESTORE_TOL = 1e-6       # a restored trial state against its final val loss
+FLAX_TOL = 1e-6          # a flax head against the .pt export writes of it
+
+
+class _Bags:
+    """make_fold_datasets' stand-in (engine/experiment.py needs pandas for
+    its manifest, which the card machine lacks): the fold's datasets from
+    in-memory bags and a split list, with the bucket's bag settings."""
+
+    def __init__(self, bags, labels, splits):
+        self.bags, self.labels, self.splits = bags, labels, splits
+        self.store = MemoryBagStore(bags)
+
+    def __call__(self, manifest, store, cfg, fold, factory=None):
+        return _fold_sets(self.bags, self.labels, self.store, cfg,
+                          self.splits, fold)
+
+
+def _timed(dev, fn):
+    _sync(dev)
+    t0 = time.perf_counter()
+    res = fn()
+    _sync(dev)
+    return res, time.perf_counter() - t0
+
+
+def phase_tune(dev, smi, records, *, n_slides=60, bag_range=(40, 600),
+               dras_bags=(8, (20_000, 100_000)), size_arg="small", d=1024,
+               lanes=8, epochs=(6, 3, 4, 4)) -> dict:
+    """Tuning, trial- and fold-parallel training, flax checkpoints
+    (engine/tune.py, tune_parallel.py, parallel/fold_parallel.py,
+    engine/flax_ckpt.py) on phase 10's 60 bags in the winning
+    configuration and phase 13's slides: (a) run_tuning, (b)
+    run_trials_parallel against one-lane and CPU runs, (c)
+    run_tuning_hetero beside sequential run_tuning, (d)
+    train_folds_parallel against sequential train_fold, (e)
+    tune_sampling_params through B.2, (f) a flax head in serve,
+    evaluate_fold and the heatmap driver against its export. ``epochs``:
+    (a), (b), (c), (d)'s max_epochs. Counts zeroed before each part and
+    read after it."""
+    import copy
+    import dataclasses
+    from hipt_abmil_atec23_tpu_torch import cli
+    from hipt_abmil_atec23_tpu_torch.data.bags import BagDataset
+    from hipt_abmil_atec23_tpu_torch.data.splits import generate_kfold_splits
+    from hipt_abmil_atec23_tpu_torch.engine import evaluate as ev
+    from hipt_abmil_atec23_tpu_torch.engine import experiment
+    from hipt_abmil_atec23_tpu_torch.engine import flax_ckpt
+    from hipt_abmil_atec23_tpu_torch.engine import metrics as M
+    from hipt_abmil_atec23_tpu_torch.engine import sampling as sm
+    from hipt_abmil_atec23_tpu_torch.engine import serve
+    from hipt_abmil_atec23_tpu_torch.engine import train as tr
+    from hipt_abmil_atec23_tpu_torch.engine import tune
+    from hipt_abmil_atec23_tpu_torch.engine import tune_parallel as tp
+    from hipt_abmil_atec23_tpu_torch.engine.checkpoint import (
+        TrainStateCheckpointer, ckpt_path, flax_ckpt_path)
+    from hipt_abmil_atec23_tpu_torch.explain.driver import load_mil_head
+    from hipt_abmil_atec23_tpu_torch.models.convert import mil_params_to_jax
+    from hipt_abmil_atec23_tpu_torch.parallel.fold_parallel import (
+        train_folds_parallel)
+    from hipt_abmil_atec23_tpu_torch.utils.config import ExperimentConfig
+    cpu = torch.device("cpu")
+    e_tune, e_lanes, e_hetero, e_folds = epochs
+    out = {"card": smi}
+    launches = {k: 0 for k in COUNTERS}
+
+    def add(counts):
+        for k in launches:
+            launches[k] += counts[k]
+
+    bags, labels = planted_bags(n_slides, bag_range, 192, seed=21)
+    store = MemoryBagStore(bags)
+    with open(WINNING_CONFIG) as f:
+        cfg = ExperimentConfig.from_dict(
+            {k: v for k, v in json.load(f).items() if k[0] != "_"})
+    splits = generate_kfold_splits(labels, cfg.train.k, seed=cfg.train.seed)
+    counts = np.bincount(labels, minlength=2)
+    sets = _fold_sets(bags, labels, store, cfg, splits, 0)
+    n_pad = max(s.pad_size() for s in sets)
+    tmp = tempfile.mkdtemp()
+    try:
+        # (a) run_tuning over the default space, trial checkpoints kept
+        acfg = dataclasses.replace(cfg, results_dir=os.path.join(tmp, "a"))
+        val_states = []
+        real_split = tr.evaluate_split
+
+        def recording(fns, model, ds, n_pad_, rng, *a, **k):
+            if ds is sets[1]:
+                val_states.append(rng.bit_generator.state)
+            return real_split(fns, model, ds, n_pad_, rng, *a, **k)
+        tr.evaluate_split = recording
+        zero_counts()
+        try:
+            (best, rows, trials), wall = _timed(dev, lambda: tune.run_tuning(
+                acfg, sets, counts, num_samples=4, max_epochs=e_tune,
+                grace_period=2, checkpoint_trials=True, verbose=False,
+                output_csv=os.path.join(tmp, "a.csv"), device=dev))
+        finally:
+            tr.evaluate_split = real_split
+        add(read_counts())
+        n_epochs = [len(t.history) for t in trials]
+        errs, start = [], 0
+        for ti, trial in enumerate(trials):
+            # the trial's last per-epoch validation pass, replayed from its
+            # last retained checkpoint on the host stream it drew from
+            state = val_states[start + n_epochs[ti] - 1]
+            start += n_epochs[ti] + 1
+            tcfg = tune.apply_trial_config(acfg, trial.config)
+            fns = tr.build_step_fns(tcfg, counts, n_pad, 192, device=dev)
+            model = fns.init_params()
+            opt = fns.tx(model.parameters())
+            ck = TrainStateCheckpointer(os.path.join(
+                acfg.results_dir, f"trial_{ti}", "ckpts"))
+            _, _, step = ck.restore(model, opt)
+            rng = np.random.default_rng()
+            rng.bit_generator.state = state
+            _, loss = tr.evaluate_split(fns, model, sets[1], n_pad, rng)
+            errs.append(abs(loss - trial.history[-1]["val_loss"]))
+            if step != n_epochs[ti] - 1 or \
+                    ck.all_steps() != list(range(max(0, step - 1), step + 1)):
+                raise SystemExit(f"tune (a): trial {ti} kept steps "
+                                 f"{ck.all_steps()}, last epoch {step}")
+        out["tuning"] = dict(epochs=n_epochs, killed=sum(
+            n < e_tune for n in n_epochs), wall_s=wall,
+            ms_per_trial_epoch=1e3 * wall / sum(n_epochs),
+            restore_err=max(errs), best=best)
+        log(f"tune (a) run_tuning, 4 trials of the default space on the "
+            f"winning configuration, max_epochs {e_tune}, grace 2: epochs "
+            f"{n_epochs} ({out['tuning']['killed']} stopped early), "
+            f"{out['tuning']['ms_per_trial_epoch']:.1f} ms per trial epoch, "
+            f"{wall:.2f} s; the last kept checkpoint against each trial's "
+            f"final val loss max |d| {max(errs):.3g} (bound {RESTORE_TOL}); "
+            f"best {best}")
+        if not max(errs) <= RESTORE_TOL:
+            raise SystemExit("tune (a): a restored trial state does not give "
+                             "the trial's final validation loss")
+
+        # (b) run_trials_parallel: 8 lanes, dropout 0, one initial state per
+        # lane; each lane alone, and the 8 on the CPU
+        bcfg = dataclasses.replace(
+            cfg, model=dataclasses.replace(cfg.model, drop_out=0.0),
+            train=dataclasses.replace(cfg.train, early_stopping=False))
+        draws = tune.sample_configs({"lr": tune.LogUniform(1e-4, 1e-2),
+                                     "reg": tune.LogUniform(1e-5, 1e-1)},
+                                    lanes, 0)
+        lrs = np.array([t["lr"] for t in draws], np.float32)
+        regs = np.array([t["reg"] for t in draws], np.float32)
+        run = lambda where, lr, reg: tp.run_trials_parallel(
+            bcfg, sets, counts, lr, reg, max_epochs=e_lanes, verbose=False,
+            device=where)
+        zero_counts()
+        many, wall_many = _timed(dev, lambda: run(dev, lrs, regs))
+        add(read_counts())
+        real_heads = tp._lane_heads
+        ones, walls_one = [], []
+        try:
+            for t in range(lanes):
+                tp._lane_heads = lambda fns, seed, _, t=t: real_heads(
+                    fns, seed, [t])
+                one, w = _timed(dev, lambda: run(dev, lrs[t:t + 1],
+                                                 regs[t:t + 1]))
+                ones.append(one.val_loss[0])
+                walls_one.append(w)
+        finally:
+            tp._lane_heads = real_heads
+        on_cpu, wall_cpu = _timed(cpu, lambda: run(cpu, lrs, regs))
+        gap_one = float(np.abs(many.val_loss - np.stack(ones)).max())
+        gap_cpu = float(np.abs(many.val_loss - on_cpu.val_loss).max())
+        out["lanes"] = dict(
+            ms_per_epoch_lanes=1e3 * wall_many / e_lanes,
+            ms_per_epoch_one=1e3 * float(np.median(walls_one)) / e_lanes,
+            ms_per_epoch_cpu=1e3 * wall_cpu / e_lanes, gap_one=gap_one,
+            gap_cpu=gap_cpu, best=many.best_trial,
+            steps_per_epoch=len(sets[0]))
+        log(f"tune (b) run_trials_parallel, {lanes} lanes x {e_lanes} epochs "
+            f"of {len(sets[0])} steps (dropout 0): "
+            f"{out['lanes']['ms_per_epoch_lanes']:.1f} ms per epoch for "
+            f"{lanes} lanes, {out['lanes']['ms_per_epoch_one']:.1f} for one "
+            f"(median), {out['lanes']['ms_per_epoch_cpu']:.1f} for {lanes} on "
+            f"the CPU; val losses against each lane alone max |d| "
+            f"{gap_one:.3g}, against the CPU {gap_cpu:.3g} (bound "
+            f"{LANE_TOL}); best lane {many.best_trial}")
+        if not (gap_one <= LANE_TOL and gap_cpu <= LANE_TOL
+                and on_cpu.best_trial == many.best_trial):
+            raise SystemExit("tune (b): stacked lanes disagree with one-lane "
+                             "or CPU runs")
+
+        # (c) two buckets of 8 trials: stacked, then sequential
+        space = {"lr": tune.LogUniform(1e-4, 1e-2),
+                 "reg": tune.LogUniform(1e-5, 1e-1),
+                 "model_size": tune.GridSearch(["hipt_smaller",
+                                                "hipt_small"])}
+        ccfg = dataclasses.replace(cfg, results_dir=os.path.join(tmp, "c"))
+        real_mk = experiment.make_fold_datasets
+        experiment.make_fold_datasets = _Bags(bags, labels, splits)
+        zero_counts()
+        try:
+            (hbest, hrows), wall_h = _timed(dev, lambda: tp.run_tuning_hetero(
+                ccfg, None, None, counts, space=space, num_samples=lanes,
+                max_epochs=e_hetero, grace_period=1, seed=0, verbose=False,
+                device=dev))
+        finally:
+            experiment.make_fold_datasets = real_mk
+        (sbest, srows, _), wall_s = _timed(dev, lambda: tune.run_tuning(
+            ccfg, sets, counts, space=space, num_samples=lanes,
+            max_epochs=e_hetero, grace_period=1, seed=0, verbose=False,
+            device=dev))
+        add(read_counts())
+        out["hetero"] = dict(
+            trials=len(hrows), wall_s=wall_h, sequential_wall_s=wall_s,
+            epochs=[r["epochs"] for r in hrows],
+            sequential_epochs=[r["epochs"] for r in srows],
+            best=hbest, sequential_best=sbest)
+        log(f"tune (c) run_tuning_hetero, {len(hrows)} trials in 2 buckets x "
+            f"{e_hetero} epochs: {wall_h:.2f} s (epochs "
+            f"{out['hetero']['epochs']}); sequential run_tuning on the same "
+            f"trials {wall_s:.2f} s (epochs "
+            f"{out['hetero']['sequential_epochs']})")
+        if len(hrows) != 2 * lanes or not all(
+                np.isfinite(r["last10_val_loss"]) for r in hrows):
+            raise SystemExit("tune (c): the stacked search gave no result")
+
+        # (d) every fold at once: the winning configuration (dropout 0.85),
+        # then dropout 0 against sequential train_fold
+        fold_sets = [_fold_sets(bags, labels, store, cfg, splits, f)
+                     for f in range(cfg.train.k)]
+        dcfg = dataclasses.replace(
+            cfg, results_dir=os.path.join(tmp, "d"),
+            train=dataclasses.replace(cfg.train, max_epochs=e_folds,
+                                      min_epochs=1, patience=1, stop_epoch=1))
+        zero_counts()
+        win, wall_win = _timed(dev, lambda: train_folds_parallel(
+            dcfg, fold_sets, counts, verbose=False, device=dev))
+        lock = dataclasses.replace(
+            dcfg, model=dataclasses.replace(dcfg.model, drop_out=0.0))
+        par, wall_par = _timed(dev, lambda: train_folds_parallel(
+            lock, fold_sets, counts, verbose=False, device=dev))
+        seq, wall_seq = [], 0.0
+        for f in range(cfg.train.k):
+            fcfg = dataclasses.replace(lock, results_dir=os.path.join(
+                tmp, "d", str(f)))
+            r, w = _timed(dev, lambda: tr.train_fold(
+                fcfg, f, *fold_sets[f], counts, verbose=False, device=dev))
+            seq.append(r)
+            wall_seq += w
+        add(read_counts())
+        pattern = [len(h) for h in par.histories]
+        fgap = max(abs(a[k] - b[k]) for r, h in zip(seq, par.histories)
+                   for a, b in zip(r.history, h)
+                   for k in ("val_loss", "train_loss"))
+        out["folds"] = dict(
+            winning_wall_s=wall_win, winning_summary={
+                k: v.tolist() for k, v in win.summary.items()},
+            winning_epochs=[len(h) for h in win.histories],
+            lockstep_wall_s=wall_par, sequential_wall_s=wall_seq,
+            epochs=pattern, sequential_epochs=[len(r.history) for r in seq],
+            gap=fgap)
+        log(f"tune (d) train_folds_parallel, k = {cfg.train.k}, max_epochs "
+            f"{e_folds}: winning configuration {wall_win:.2f} s, epochs "
+            f"{out['folds']['winning_epochs']}, test AUC "
+            f"{[round(float(v), 4) for v in win.summary['test_auc']]}; "
+            f"dropout 0 "
+            f"{wall_par:.2f} s against sequential train_fold {wall_seq:.2f} "
+            f"s: epochs {pattern} / {out['folds']['sequential_epochs']}, "
+            f"per-epoch losses max |d| {fgap:.3g} (bound {LANE_TOL})")
+        if pattern != out["folds"]["sequential_epochs"] or \
+                not fgap <= LANE_TOL or \
+                not all(np.isfinite(v).all() for v in win.summary.values()):
+            raise SystemExit("tune (d): fold-parallel training disagrees with "
+                             "sequential train_fold")
+        del fold_sets, win, par, seq
+
+        # (e) tune_sampling_params on phase 13's slides through B.2
+        n_dras, dras_range = dras_bags
+        head_cpu, direction = dras_head(size_arg, 41)
+        head = copy.deepcopy(head_cpu).to(dev)
+        dbags, coords, _ = dras_slides(n_dras, dras_range, d, 43, direction,
+                                       dev)
+        ecfg = ExperimentConfig.from_dict({
+            "task": {"n_classes": 2}, "bags": {"max_patches_per_slide": 0},
+            "model": {"model_type": "clam_sb", "model_size": size_arg}})
+        ds = BagDataset(list(dbags), np.arange(n_dras) % 2,
+                        MemoryBagStore(dbags), ecfg.bags)
+        zero_counts()
+        (sbest, srows), wall_e = _timed(dev, lambda: tune.tune_sampling_params(
+            ecfg, ds, head, coords_lookup=coords, num_samples=4, seed=0,
+            verbose=False, device=dev))
+        got = read_counts()
+        add(got)
+        want = sum(n_dras * (r["resampling_iterations"] + 1) for r in srows)
+        bi = [r["auc"] for r in srows].index(max(r["auc"] for r in srows))
+        probs, _ = sm.eval_sampling(ecfg, tune.sampling_config_of(sbest), ds,
+                                    head, coords_lookup=coords, seed=bi,
+                                    device=dev)
+        again = M.auc_score(ds.labels, probs, 2)
+        out["sampling"] = dict(
+            wall_s=wall_e, ms_per_trial=1e3 * wall_e / len(srows),
+            launches=got["gated_pool"], launches_wanted=want,
+            aucs=[r["auc"] for r in srows], best=sbest, rerun_auc=again)
+        log(f"tune (e) tune_sampling_params, 4 trials on {n_dras} slides of "
+            f"{min(map(len, dbags.values()))}-{max(map(len, dbags.values()))}"
+            f" x {d}: {out['sampling']['ms_per_trial']:.0f} ms per trial, "
+            f"{got['gated_pool']} pool launches (wanted {want}: 8 x "
+            f"(iterations + 1) per trial); AUCs "
+            f"{[round(a, 4) for a in out['sampling']['aucs']]}, the best "
+            f"rerun {again:.6f}")
+        if got["gated_pool"] != want or again != srows[bi]["auc"]:
+            raise SystemExit("tune (e): the pool's launches or the best "
+                             "trial's rerun disagree")
+        del dbags, ds, coords
+
+        # (f) a flax head: the port's writer, then serve, evaluate_fold and
+        # the heatmap driver load it and the .pt that export writes of it
+        fhead = _reference_clam("hipt_smaller", 47, cpu)
+        fdir, pdir = os.path.join(tmp, "flax"), os.path.join(tmp, "pt")
+        flax_ckpt.save_params(flax_ckpt_path(fdir, 0),
+                              mil_params_to_jax(fhead.state_dict()))
+        cli.main(["export", "--ckpt", flax_ckpt_path(fdir, 0), "--out",
+                  ckpt_path(pdir, 0), "--device", dev.type])
+        fcfg = ExperimentConfig.from_dict({
+            "task": {"n_classes": 2}, "bags": {"max_patches_per_slide": None},
+            "model": {"model_type": "clam_sb",
+                      "model_size": "hipt_smaller"}})
+        ids = list(bags)[:8]
+        fds = BagDataset(ids, labels[:8], store, fcfg.bags)
+        feats = bags[ids[0]]
+        stub = type("Encoder", (), {"feat_dim": 192})()
+        zero_counts()
+        got = {}
+        for name, path in (("flax", flax_ckpt_path(fdir, 0)),
+                           ("pt", ckpt_path(pdir, 0))):
+            state = serve.ServeState(device=dev, encoder=stub)
+            serve._ensure_state(serve.ServeConfig(
+                slide_dir=tmp, out_dir=tmp, ckpt_path=path,
+                model=fcfg.model), state)
+            s = serve._mil_bucketed(state, feats).y_prob[0].cpu().numpy()
+            e = ev.evaluate_fold(fcfg, 0, fds, counts, os.path.dirname(path),
+                                 device=dev).test_probs
+            m = load_mil_head(path, fcfg.model, 2, 192, dev)
+            with torch.no_grad():
+                h = gap.apply_pooled(m, torch.from_numpy(feats).to(dev)
+                                     ).y_prob[0].cpu().numpy()
+            got[name] = (s, e, h)
+        add(read_counts())
+        ferr = max(float(np.abs(a - b).max())
+                   for a, b in zip(got["flax"], got["pt"]))
+        out["flax"] = dict(err=ferr, probs=got["flax"][0].tolist())
+        log(f"tune (f) a flax CLAM_SB hipt_smaller written without flax: "
+            f"serve (_ensure_state + _mil_bucketed), evaluate_fold on "
+            f"{len(ids)} full bags and load_mil_head (the heatmap driver's "
+            f"loader) against the .pt export writes of it, max |d| "
+            f"{ferr:.3g} (bound {FLAX_TOL})")
+        if not ferr <= FLAX_TOL:
+            raise SystemExit("tune (f): the flax head and its export "
+                             "disagree")
+    finally:
+        import shutil
+        shutil.rmtree(tmp, ignore_errors=True)
+    records["gated_pool"]["tune"] = dict(
+        launches=launches["gated_pool"],
+        launches_sampling=out["sampling"]["launches"])
+    log("tune " + json.dumps(out, default=str))
+    return {"launches": launches, "owned": {}}
+
+
 def set_launches(records, paths) -> None:
     """Each record's launches from the run of the path that owns its kernel
     (``paths``: name -> a phase's result, whose "owned" holds the counts
@@ -3825,6 +4213,7 @@ def main() -> int:
                          res["feats"]["mem0"], res["clam"])
     rres = phase_resnet(dev, smi, planes, dct_slides[0], kres["records"])
     dras = phase_dras(dev, smi, kres["records"], online=rres["online"])
+    tune = phase_tune(dev, smi, kres["records"])
     if args.profile:
         phase_profile(dev, res["encoder"], pres["encoder"], planes[0],
                       dct_slides[0], args.profile)
@@ -3833,7 +4222,7 @@ def main() -> int:
                            "per_op": pres, "sharded": sres,
                            "encode_stage": eres, "train_eval": tres,
                            "explain": xres, "resnet": rres,
-                           "dras": dras})
+                           "dras": dras, "tune": tune})
     records["fused_block"].update(
         launches_vit256=eres["launches_vit256"],
         ms_256x264x384=eres.get("block_ms_vit256"))

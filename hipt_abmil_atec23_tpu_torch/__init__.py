@@ -10,8 +10,10 @@ ResNet50-trunc, ResNet-18 and LeViT encoders) and the serving path: slide tiling
 HIPT_4K region encoder (ViT-256 -> ViT-4K) and a MIL head; the train and
 eval stages (every MIL head of the JAX package, k-fold training with early
 stopping and .pt checkpoints, online encoding of slide patches in the
-training loop, fold evaluation, bootstrap CIs on the device); and exact full-bag MIL inference and training with the instance
-axis sharded over processes (torch.distributed).
+training loop, fold evaluation, bootstrap CIs on the device); hyperparameter
+tuning, and fold- and trial-parallel training as stacked heads; the JAX
+package's flax checkpoints; and exact full-bag MIL inference and training
+with the instance axis sharded over processes (torch.distributed).
 
 The DCT unpack, every transformer block and the MIL pooling run through
 CUDA kernels written by hand for sm_90a (``kernels/csrc``). The rule is by
@@ -25,8 +27,10 @@ Subpackages:
              decode, masking, host transforms
   engine   — encoders + slide stream with its rung selector, the encode
              stage, serving, training, evaluation, losses, metrics and
-             the bootstrap, checkpoints, the k-fold loop
-  parallel — process groups, meshes, instance-sharded forward and trainer
+             the bootstrap, checkpoints (torch and flax), the k-fold loop,
+             DRAS sampling, tuning, stacked trial lanes
+  parallel — process groups, meshes, instance-sharded forward and trainer,
+             fold-parallel training
   slideio  — native slide reader binding, segmentation, coordinates, the
              tile stage, stitches, legacy helpers, synthetic and in-memory
              slides
@@ -36,8 +40,8 @@ Subpackages:
              bags
   explain  — attention blockmaps
   kernels  — CUDA sources and their nvcc/ctypes build
-  cli      — the tile, encode, train, eval, splits, bootstrap, count and
-             serve commands
+  cli      — the tile, encode, train, eval, splits, bootstrap, count,
+             serve, heatmap, knn, export and parity commands
 """
 
 __version__ = "0.1.0"

@@ -1,26 +1,30 @@
 """The port's command line: the tile, encode, train, eval, splits,
-bootstrap, count, serve, heatmap and knn stages.
+bootstrap, count, serve, heatmap, knn, export and parity stages.
 
     python -m hipt_abmil_atec23_tpu_torch.cli <tile|encode|train|eval|splits|
                                                bootstrap|count|serve|heatmap|
-                                               knn> [flags]
+                                               knn|export|parity> [flags]
 
 Each subcommand takes the JAX package's flags (hipt_abmil_atec23_tpu/cli.py)
 and writes the same artifacts, so either package reads what the other wrote:
 coords h5s, masks and stitches under the tile stage's save_dir, feature bags
 in the reference layout under feat_dir, split CSVs, fold CSVs, summaries and
 the experiment settings, the serve journal and results, heatmaps,
-blockmaps, ROIs and attention galleries. Checkpoints are the reference's
-``s_{fold}_checkpoint.pt``. ``--device`` picks the card (``cuda``, the
-default) or the CPU (``cpu``). Every encoder of the JAX package (HIPT_4K,
-vit256, resnet50, resnet18, levit_128s, levit_256) runs in ``encode``,
-``serve``, ``heatmap`` and online training (``train --extract_features``).
-DRAS sampling runs in ``train --sampling`` and ``eval --use_sampling``
-(host loop or ``--device_sampling``, spatial or textural, precomputed bags
-or ``--eval_features``). Choices the port does not have yet (flax MIL
-checkpoints, tuning, sampling tuning, fold- and trial-parallel training)
-raise an error that names the ROADMAP item that ports them; export and
-parity are not ported yet.
+blockmaps, ROIs and attention galleries, tuning results. Checkpoints are
+the reference's ``s_{fold}_checkpoint.pt``; ``eval``, ``serve`` and
+``heatmap`` also load the JAX package's flax ``.msgpack`` heads, and
+``export`` turns one into the reference's ``.pt``. ``--device`` picks the
+card (``cuda``, the default) or the CPU (``cpu``). Every encoder of the JAX
+package (HIPT_4K, vit256, resnet50, resnet18, levit_128s, levit_256) runs
+in ``encode``, ``serve``, ``heatmap`` and online training (``train
+--extract_features``). DRAS sampling runs in ``train --sampling`` and
+``eval --use_sampling`` (host loop or ``--device_sampling``, spatial or
+textural, precomputed bags or ``--eval_features``; ``--tune_sampling``
+searches its parameters first). ``train --tuning`` searches
+hyperparameters (ASHA, ``--trial_parallel`` for stacked lr / reg trials),
+``train --fold_parallel`` trains every fold at once, and ``parity`` chains
+tile -> encode -> splits -> train -> bootstrap against the reference's
+headline AUC.
 """
 from __future__ import annotations
 
@@ -182,11 +186,6 @@ def _cmd_encode(a):
               f"({', '.join(s for s, _ in failed)}) -> {fcsv}")
 
 
-# train / eval flags the port refuses, with the ROADMAP item that ports them
-_NOT_PORTED = {"tuning": "§A.10", "trial_parallel": "§A.10",
-               "fold_parallel": "§A.10", "tune_sampling": "§A.10"}
-
-
 def _add_sampling(p, cmd: str) -> None:
     """The DRAS flags (reference: main.py:358-371; eval.py's sampling
     path); train adds the update rule, the full-bag epochs and the grid
@@ -308,33 +307,26 @@ def _add_train(sub):
     # DRAS active sampling (reference: main.py:358-371)
     p.add_argument("--sampling", action="store_true")
     _add_sampling(p, "train")
-    # not ported yet: each is refused, naming its ROADMAP item
-    for flag in ("tuning", "trial_parallel", "fold_parallel"):
-        p.add_argument(f"--{flag}", action="store_true",
-                       help=f"not ported yet (ROADMAP {_NOT_PORTED[flag]})")
-    _add_route_flags(p, "train")
+    # hyperparameter tuning (reference: main.py --tuning)
+    p.add_argument("--tuning", action="store_true")
+    p.add_argument("--num_tuning_samples", type=int, default=20)
+    p.add_argument("--tuning_output_file", default=None)
+    p.add_argument("--checkpoint_trials", action="store_true",
+                   help="per-epoch train-state checkpoints per trial "
+                        "(reference: tune.checkpoint_dir saves, "
+                        "core_utils_tuning.py:235-240)")
+    p.add_argument("--resume_tuning", action="store_true",
+                   help="skip trials already in the tuning results CSV "
+                        "(reference: Tuner.restore, main.py:259-263)")
+    p.add_argument("--grace_period", type=int, default=8)
+    p.add_argument("--trial_parallel", action="store_true",
+                   help="lr / reg trials as one stacked run (torch.func."
+                        "vmap); architecture fixed across trials")
+    p.add_argument("--fold_parallel", action="store_true",
+                   help="train every fold at once (stacked heads), folds "
+                        "split over the process group's ranks when it has "
+                        "more than one and they divide k")
     _add_device(p)
-
-
-# the JAX CLI's flags that act only on a route above; accepted (with or
-# without a value) so its command lines parse, and unused
-_ROUTE_FLAGS = {
-    "train": ("num_tuning_samples tuning_output_file checkpoint_trials "
-              "resume_tuning grace_period"),
-    "eval": "num_tuning_samples"}
-
-
-def _add_route_flags(p, cmd: str) -> None:
-    for name in _ROUTE_FLAGS[cmd].split():
-        p.add_argument(f"--{name}", nargs="?", const=True,
-                       help="acts only on a route not ported yet")
-
-
-def _refuse_not_ported(a, cmd: str) -> None:
-    for flag, item in _NOT_PORTED.items():
-        if getattr(a, flag, False):
-            raise NotImplementedError(f"{cmd} --{flag} is not ported yet "
-                                      f"(ROADMAP {item})")
 
 
 def _train_cfg(a):
@@ -362,7 +354,8 @@ def _train_cfg(a):
                           weighted_sample=a.weighted_sample, seed=a.seed,
                           k=a.k, k_start=a.k_start, k_end=a.k_end,
                           continue_training=a.continue_training,
-                          epoch_chunk=a.epoch_chunk))
+                          epoch_chunk=a.epoch_chunk,
+                          fold_parallel=a.fold_parallel))
 
 
 def _debug_loader(cfg, manifest, store) -> None:
@@ -422,7 +415,6 @@ def _cmd_train(a):
     from hipt_abmil_atec23_tpu_torch.data.bags import FeatureBagStore
     from hipt_abmil_atec23_tpu_torch.data.manifest import SlideManifest
     from hipt_abmil_atec23_tpu_torch.device import resolve_device
-    _refuse_not_ported(a, "train")
     device = resolve_device(a.device)
     cfg = _train_cfg(a)
     manifest = SlideManifest.from_csv(a.csv_path, cfg.task.label_dict,
@@ -433,6 +425,9 @@ def _cmd_train(a):
         return
 
     def run():
+        if a.tuning:
+            _train_tuning(a, cfg, manifest, store, device)
+            return
         if a.sampling:
             _train_sampling(a, cfg, manifest, store, device)
             return
@@ -441,6 +436,9 @@ def _cmd_train(a):
             return
         if a.full_bag_sharded:
             _train_full_bags(cfg, manifest, store, device)
+            return
+        if a.fold_parallel:
+            _train_fold_parallel(cfg, manifest, store, device)
             return
         from hipt_abmil_atec23_tpu_torch.engine.experiment import run_cv
         summary, _ = run_cv(cfg, manifest, store, device=device)
@@ -462,6 +460,75 @@ def _cmd_train(a):
             pstats.Stats(pr).sort_stats("cumulative").print_stats(25)
         else:
             run()
+
+
+def _train_tuning(a, cfg, manifest, store, device) -> None:
+    """Hyperparameter search on fold 0 (reference: main.py --tuning):
+    ASHA over DEFAULT_SEARCH_SPACE through train_fold, or with
+    --trial_parallel lr / reg trials as one stacked run."""
+    from hipt_abmil_atec23_tpu_torch.engine.experiment import (
+        make_fold_datasets)
+    from hipt_abmil_atec23_tpu_torch.engine.tune import write_rows
+    folds = make_fold_datasets(manifest, store, cfg, 0)
+    out_csv = a.tuning_output_file or os.path.join(cfg.results_dir,
+                                                   "tuning_results.csv")
+    os.makedirs(cfg.results_dir, exist_ok=True)
+    if a.trial_parallel:
+        from hipt_abmil_atec23_tpu_torch.engine.tune import (
+            LogUniform, sample_configs)
+        from hipt_abmil_atec23_tpu_torch.engine.tune_parallel import (
+            run_trials_parallel)
+        space = {"lr": LogUniform(1e-5, 1e-2), "reg": LogUniform(1e-5, 1e-1)}
+        trials = sample_configs(space, a.num_tuning_samples, cfg.train.seed)
+        lrs = np.array([t["lr"] for t in trials], np.float32)
+        regs = np.array([t["reg"] for t in trials], np.float32)
+        res = run_trials_parallel(cfg, folds, manifest.class_counts(), lrs,
+                                  regs, device=device)
+        last10 = res.val_loss[:, -10:].mean(1)
+        write_rows(out_csv, [{"lr": lr, "reg": reg, "last10_val_loss": v}
+                             for lr, reg, v in zip(res.lr, res.reg, last10)])
+        print(f"[tune] best: lr={res.best_lr:.2e} reg={res.best_reg:.2e}")
+        return
+    from hipt_abmil_atec23_tpu_torch.engine.tune import run_tuning
+    best, _, _ = run_tuning(cfg, folds, manifest.class_counts(),
+                            num_samples=a.num_tuning_samples,
+                            grace_period=a.grace_period, output_csv=out_csv,
+                            checkpoint_trials=a.checkpoint_trials,
+                            resume=a.resume_tuning, device=device)
+    print(f"[tune] best config: {best}")
+
+
+def _train_fold_parallel(cfg, manifest, store, device) -> None:
+    """Every fold at once (parallel/fold_parallel.py). Under a launcher
+    with more than one rank (torchrun) the folds split over the process
+    group's ranks when the world size divides k; otherwise one process
+    trains them all. Rank 0 writes summary.csv."""
+    import pandas as pd
+    import torch.distributed as dist
+    from hipt_abmil_atec23_tpu_torch.engine.experiment import (
+        make_fold_datasets)
+    from hipt_abmil_atec23_tpu_torch.parallel.fold_parallel import (
+        train_folds_parallel)
+    k = cfg.train.k
+    folds = [make_fold_datasets(manifest, store, cfg, f) for f in range(k)]
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        from hipt_abmil_atec23_tpu_torch.parallel.multihost import (
+            init_multihost)
+        init_multihost(device=device)
+    mesh = None
+    if dist.is_initialized():
+        world = dist.get_world_size()
+        if world > 1 and k % world == 0:
+            from hipt_abmil_atec23_tpu_torch.parallel.mesh import make_mesh
+            mesh = make_mesh([("fold", world)], device.type)
+    res = train_folds_parallel(cfg, folds, manifest.class_counts(), mesh,
+                               device=device)
+    if mesh is not None and dist.get_rank():
+        return
+    summary = pd.DataFrame({"folds": np.arange(k), **res.summary})
+    os.makedirs(cfg.results_dir, exist_ok=True)
+    summary.to_csv(os.path.join(cfg.results_dir, "summary.csv"), index=False)
+    print(summary)
 
 
 def _train_sampling(a, cfg, manifest, store, device) -> None:
@@ -610,7 +677,9 @@ def _add_eval(sub):
     p.add_argument("--use_sampling", action="store_true")
     _add_sampling(p, "eval")
     p.add_argument("--tune_sampling", action="store_true",
-                   help=f"not ported yet (ROADMAP {_NOT_PORTED['tune_sampling']})")
+                   help="search DRAS sampling params on the val split first "
+                        "(reference: eval.py:172-227)")
+    p.add_argument("--num_tuning_samples", type=int, default=10)
     # on-the-fly extraction of only the sampled patches
     # (reference: --eval_features, eval_utils.py:231-260)
     p.add_argument("--eval_features", action="store_true")
@@ -622,7 +691,6 @@ def _add_eval(sub):
     p.add_argument("--resnet_ckpt", default=None)
     p.add_argument("--vit256_ckpt", default=None)
     p.add_argument("--vit4k_ckpt", default=None)
-    _add_route_flags(p, "eval")
     _add_device(p)
 
 
@@ -635,7 +703,6 @@ def _cmd_eval(a):
     from hipt_abmil_atec23_tpu_torch.engine.evaluate import run_eval
     from hipt_abmil_atec23_tpu_torch.utils.config import (
         BagConfig, ExperimentConfig, ModelConfig, TrainConfig)
-    _refuse_not_ported(a, "eval")
     device = resolve_device(a.device)
     task = dataclasses.replace(get_task(a.task), csv_path=a.csv_path)
     cfg = ExperimentConfig(
@@ -674,14 +741,17 @@ def _resolve_slide_paths(slide_dir: str, slide_ids) -> dict:
 
 def _eval_with_sampling(a, cfg, manifest, store, device) -> None:
     """DRAS inference-time evaluation (reference: eval.py sampling path +
-    eval_utils.summary_sampling): per fold, the fold's .pt head classifies
-    each slide's DRAS bag (engine/sampling.eval_sampling); writes
-    fold_k.csv and summary.csv as the JAX CLI does."""
+    eval_utils.summary_sampling): per fold, the fold's head (.pt, else the
+    JAX package's .msgpack) classifies each slide's DRAS bag
+    (engine/sampling.eval_sampling); with --tune_sampling the sampling
+    parameters are searched on the first fold's val split first. Writes
+    fold_k.csv and summary.csv (and sampling_tuning.csv) as the JAX CLI
+    does."""
     import dataclasses
     import pandas as pd
     from hipt_abmil_atec23_tpu_torch.data.bags import BagDataset
     from hipt_abmil_atec23_tpu_torch.engine import metrics as M
-    from hipt_abmil_atec23_tpu_torch.engine.checkpoint import ckpt_path
+    from hipt_abmil_atec23_tpu_torch.engine.checkpoint import fold_ckpt
     from hipt_abmil_atec23_tpu_torch.engine.experiment import (
         make_fold_datasets)
     from hipt_abmil_atec23_tpu_torch.engine.sampling import eval_sampling
@@ -731,6 +801,27 @@ def _eval_with_sampling(a, cfg, manifest, store, device) -> None:
         for sid in manifest.slide_ids:
             _, coords_lookup[sid] = store.load_with_coords(sid)
     bags_full = dataclasses.replace(cfg.bags, max_patches_per_slide=0)
+    if a.tune_sampling:
+        if feature_lookup is not None:
+            raise SystemExit("--tune_sampling needs precomputed features; "
+                             "drop --eval_features or encode first")
+        # search the sampling parameters on the first fold's val split
+        # (reference: eval.py:172-227 tunes at eval time)
+        from hipt_abmil_atec23_tpu_torch.engine.tune import (
+            sampling_config_of, tune_sampling_params)
+        _, va0, _ = make_fold_datasets(manifest, store, cfg, folds[0])
+        va_ds = BagDataset(va0.slide_ids, va0.labels, store, bags_full)
+        model0 = load_mil_head(fold_ckpt(a.models_dir, folds[0]), cfg.model,
+                               cfg.task.n_classes,
+                               va_ds._full_bag(va_ds.slide_ids[0]).shape[1],
+                               device)
+        best, _ = tune_sampling_params(
+            cfg, va_ds, model0, coords_lookup=coords_lookup,
+            num_samples=a.num_tuning_samples,
+            output_csv=os.path.join(a.save_dir, "sampling_tuning.csv"),
+            device=device)
+        print(f"[eval-sampling] tuned params: {best}")
+        scfg = sampling_config_of(best, scfg)
     rows = []
     try:
         for fold in folds:
@@ -739,7 +830,7 @@ def _eval_with_sampling(a, cfg, manifest, store, device) -> None:
             feat_dim = (feature_lookup[ds.slide_ids[0]].shape[1]
                         if feature_lookup is not None
                         else ds._full_bag(ds.slide_ids[0]).shape[1])
-            model = load_mil_head(ckpt_path(a.models_dir, fold), cfg.model,
+            model = load_mil_head(fold_ckpt(a.models_dir, fold), cfg.model,
                                   cfg.task.n_classes, feat_dim, device)
             probs, counts = eval_sampling(
                 cfg, scfg, ds, model, coords_lookup=coords_lookup,
@@ -909,7 +1000,8 @@ def _add_serve(sub):
     p.add_argument("--slide_dir", required=True)
     p.add_argument("--out_dir", required=True)
     p.add_argument("--ckpt", required=True,
-                   help="MIL checkpoint (reference-layout torch .pt)")
+                   help="MIL checkpoint (reference-layout torch .pt; any "
+                        "other name is a flax checkpoint)")
     p.add_argument("--model_type", default="clam_sb")
     p.add_argument("--model_size", default="hipt_smaller")
     p.add_argument("--n_classes", type=int, default=2)
@@ -945,13 +1037,8 @@ def _cmd_serve(a):
         EncoderConfig, ModelConfig, SegConfig, TileConfig)
     from hipt_abmil_atec23_tpu_torch.models.abmil import check_model_type
     # refused before serving starts: the daemon logs a failed drain and
-    # polls on, so these would otherwise never stop it
+    # polls on, so this would otherwise never stop it
     check_model_type(a.model_type)
-    if not a.ckpt.endswith(".pt"):
-        raise NotImplementedError(f"{a.ckpt!r}: the port serves "
-                                  "reference-layout torch .pt MIL heads; "
-                                  "flax checkpoints are not ported yet "
-                                  "(ROADMAP §A.7)")
     cfg = ServeConfig(
         slide_dir=a.slide_dir, out_dir=a.out_dir, ckpt_path=a.ckpt,
         encoder=EncoderConfig(
@@ -994,7 +1081,8 @@ def _add_heatmap(sub):
                    help="precomputed features (.pt/.h5/.npy); if absent, "
                    "encode on the fly")
     p.add_argument("--ckpt", default=None,
-                   help="MIL checkpoint (reference-layout torch .pt)")
+                   help="MIL checkpoint (reference-layout torch .pt; any "
+                        "other name is a flax checkpoint)")
     p.add_argument("--model_type", default="clam_sb")
     p.add_argument("--model_size", default="hipt_smaller")
     p.add_argument("--encoder", default="HIPT_4K")
@@ -1064,15 +1152,13 @@ def _cmd_heatmap(a):
             raise SystemExit(f"--{req} is required without --config")
     import cv2
     from hipt_abmil_atec23_tpu_torch.device import resolve_device
-    from hipt_abmil_atec23_tpu_torch.explain.driver import (
-        load_mil_head, require_pt)
+    from hipt_abmil_atec23_tpu_torch.explain.driver import load_mil_head
     from hipt_abmil_atec23_tpu_torch.explain.heatmaps import (
         draw_heatmap, infer_attention, sample_rois, save_blockmap)
     from hipt_abmil_atec23_tpu_torch.slideio.patching import load_coords_h5
     from hipt_abmil_atec23_tpu_torch.slideio.reader import open_slide
     from hipt_abmil_atec23_tpu_torch.utils.config import ModelConfig
 
-    require_pt(a.ckpt)
     device = resolve_device(a.device)
     os.makedirs(a.save_dir, exist_ok=True)
     coords, attrs = load_coords_h5(a.coords_h5)
@@ -1152,6 +1238,148 @@ def _heatmap_galleries(a, device, slide, sid, rois, patch_size,
     print(f"[heatmap] galleries for {k} ROI regions -> {out_dir}")
 
 
+def _add_export(sub):
+    p = sub.add_parser("export", help="export a flax MIL checkpoint to "
+                       "the reference's torch s_k_checkpoint.pt layout")
+    p.add_argument("--ckpt", required=True, help="msgpack fold checkpoint")
+    p.add_argument("--out", required=True, help="output .pt path")
+    p.add_argument("--model_type", default="clam_sb",
+                   choices=["clam_sb", "clam_mb"])
+    p.add_argument("--model_size", default="hipt_smaller")
+    p.add_argument("--n_classes", type=int, default=2)
+    p.add_argument("--drop_out", type=float, default=0.0,
+                   help="match the reference model's dropout flag so the "
+                        "attention module index lines up (eval_utils.py:44)")
+    _add_device(p)
+
+
+def _cmd_export(a):
+    """The JAX CLI's export (cli.py:1132-1170) without flax: the checkpoint
+    read by engine/flax_ckpt.py, checked against the head it names (a
+    strict state-dict load), bridged to the reference layout."""
+    # host work only: --device is taken for a uniform command line
+    import torch
+    from hipt_abmil_atec23_tpu_torch.engine.flax_ckpt import load_params
+    from hipt_abmil_atec23_tpu_torch.models.abmil import build_mil_model
+    from hipt_abmil_atec23_tpu_torch.models.convert import (
+        mil_state_dict_from_jax)
+    sd = mil_state_dict_from_jax(load_params(a.ckpt), a.model_type,
+                                 a.n_classes, with_dropout=a.drop_out > 0)
+    build_mil_model(a.model_type, size_arg=a.model_size,
+                    n_classes=a.n_classes, dropout=a.drop_out
+                    ).load_state_dict(sd)
+    os.makedirs(os.path.dirname(a.out) or ".", exist_ok=True)
+    torch.save(sd, a.out)
+    print(f"[export] {a.ckpt} -> {a.out} ({len(sd)} tensors, reference "
+          f"CLAM layout; loads via eval.py --models_exp_code)")
+
+
+def _add_parity(sub):
+    p = sub.add_parser(
+        "parity", help="one-command real-weights AUC parity recipe: "
+        "tile -> encode (HIPT_4K from the released DINO ckpts) -> splits "
+        "-> k-fold train -> bootstrap, then compare the bootstrap AUC to "
+        "the reference headline 0.6462 +/- 0.0328 "
+        "(reference: docs/README.md:92, extract_features_fp.py:214)")
+    p.add_argument("--slide_dir", required=True)
+    p.add_argument("--csv_path", required=True,
+                   help="dataset CSV (slide_id + label columns, the "
+                        "reference's dataset_csv contract)")
+    p.add_argument("--vit256_ckpt", required=True,
+                   help="e.g. ckpts/vit256_small_dino.pth")
+    p.add_argument("--vit4k_ckpt", required=True,
+                   help="e.g. ckpts/vit4k_xs_dino.pth")
+    p.add_argument("--work_dir", required=True,
+                   help="all intermediates land here (tiles/ feats/ "
+                        "splits/ results/); every stage skips work that "
+                        "already exists, so the recipe is resumable")
+    p.add_argument("--task", default="treatment")
+    p.add_argument("--target_auc", type=float, default=0.6462)
+    p.add_argument("--target_std", type=float, default=0.0328)
+    p.add_argument("--k", type=int, default=5)
+    p.add_argument("--seed", type=int, default=1)
+    p.add_argument("--slide_ext", default=".svs")
+    p.add_argument("--region_size", type=int, default=4096,
+                   help="HIPT region edge (reference: hipt_4k.py 4096px "
+                        "two-stage input)")
+    p.add_argument("--encode_batch_size", type=int, default=8)
+    p.add_argument("--max_epochs", type=int, default=100)
+    p.add_argument("--min_epochs", type=int, default=50)
+    p.add_argument("--lr", type=float, default=1e-3)
+    p.add_argument("--max_patches_per_slide", type=int, default=75)
+    p.add_argument("--bootstraps", type=int, default=100_000)
+    p.add_argument("--use_otsu", action="store_true")
+    p.add_argument("--a_t", type=int, default=100)
+    p.add_argument("--strict", action="store_true",
+                   help="exit 1 when the AUC lands outside the combined "
+                        "one-std band")
+    p.add_argument("--extra_train_args", default="",
+                   help="extra flags appended verbatim to the train stage "
+                        "(e.g. '--no_inst_cluster --bag_loss ce')")
+    _add_device(p)
+
+
+def parity_stages(a) -> List[List[str]]:
+    """The JAX CLI's parity stages (cli.py:1240-1335), each with this
+    run's --device appended."""
+    tiles = os.path.join(a.work_dir, "tiles")
+    feats = os.path.join(a.work_dir, "feats")
+    splits = os.path.join(a.work_dir, "splits")
+    results = os.path.join(a.work_dir, "results")
+    stages = [
+        ["tile", "--source", a.slide_dir, "--save_dir", tiles,
+         "--patch_size", str(a.region_size), "--step_size",
+         str(a.region_size), "--a_t", str(a.a_t)]
+        + (["--use_otsu"] if a.use_otsu else []),
+        ["encode", "--data_h5_dir", tiles, "--data_slide_dir", a.slide_dir,
+         "--csv_path", a.csv_path, "--feat_dir", feats, "--model_type",
+         "HIPT_4K", "--vit256_ckpt", a.vit256_ckpt, "--vit4k_ckpt",
+         a.vit4k_ckpt, "--slide_ext", a.slide_ext, "--batch_size",
+         str(a.encode_batch_size)],
+        ["splits", "--task", a.task, "--csv_path", a.csv_path,
+         "--split_dir", splits, "--k", str(a.k), "--seed", str(a.seed)],
+        ["train", "--task", a.task, "--csv_path", a.csv_path, "--feat_dir",
+         feats, "--results_dir", results, "--exp_code", "parity",
+         "--split_dir", splits, "--k", str(a.k), "--seed", str(a.seed),
+         "--lr", str(a.lr), "--max_epochs", str(a.max_epochs),
+         "--min_epochs", str(a.min_epochs), "--max_patches_per_slide",
+         str(a.max_patches_per_slide)] + a.extra_train_args.split(),
+    ]
+    return [argv + ["--device", a.device] for argv in stages]
+
+
+def _cmd_parity(a):
+    """Chains the port's own stages in-process; each prints the equivalent
+    standalone command, so a failed stage can be rerun or tweaked by hand.
+    Writes parity_summary.json beside them."""
+    from hipt_abmil_atec23_tpu_torch.engine.evaluate import (
+        bootstrap_from_fold_csvs)
+    os.makedirs(a.work_dir, exist_ok=True)
+    for argv in parity_stages(a):
+        print("[parity] stage: python -m hipt_abmil_atec23_tpu_torch.cli "
+              + " ".join(argv), flush=True)
+        rc = main(argv)
+        if rc:
+            raise SystemExit(rc)
+    results = os.path.join(a.work_dir, "results")
+    out = bootstrap_from_fold_csvs([results], list(range(a.k)),
+                                   n_bootstraps=a.bootstraps, seed=0,
+                                   device=a.device)
+    auc, std = out["auc"]["mean"], out["auc"]["std"]
+    band = a.target_std + std
+    ok = abs(auc - a.target_auc) <= band
+    with open(os.path.join(a.work_dir, "parity_summary.json"), "w") as f:
+        json.dump({"auc": auc, "auc_std": std,
+                   "target_auc": a.target_auc, "target_std": a.target_std,
+                   "within_band": bool(ok), "bootstrap": out}, f, indent=2)
+    print(f"[parity] bootstrap AUC {auc:.4f} +/- {std:.4f} vs reference "
+          f"{a.target_auc:.4f} +/- {a.target_std:.4f} "
+          f"(|delta| = {abs(auc - a.target_auc):.4f}, combined one-std "
+          f"band = {band:.4f}) -> {'WITHIN BAND' if ok else 'OUTSIDE BAND'}")
+    if a.strict and not ok:
+        raise SystemExit(1)
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     parser = argparse.ArgumentParser(
         prog="hipt_abmil_atec23_tpu_torch",
@@ -1159,13 +1387,14 @@ def main(argv: Optional[List[str]] = None) -> int:
     sub = parser.add_subparsers(dest="cmd", required=True)
     for add in (_add_tile, _add_encode, _add_train, _add_eval, _add_splits,
                 _add_bootstrap, _add_count, _add_serve, _add_heatmap,
-                _add_knn):
+                _add_knn, _add_export, _add_parity):
         add(sub)
     a = parser.parse_args(argv)
     {"tile": _cmd_tile, "encode": _cmd_encode, "train": _cmd_train,
      "eval": _cmd_eval, "splits": _cmd_splits, "bootstrap": _cmd_bootstrap,
      "count": _cmd_count, "serve": _cmd_serve,
-     "heatmap": _cmd_heatmap, "knn": _cmd_knn}[a.cmd](a)
+     "heatmap": _cmd_heatmap, "knn": _cmd_knn, "export": _cmd_export,
+     "parity": _cmd_parity}[a.cmd](a)
     return 0
 
 

@@ -3,10 +3,10 @@
 Counterpart of hipt_abmil_atec23_tpu/engine/evaluate.py (reference:
 eval.py, utils/eval_utils.py initiate_model/eval/summary,
 bootstrapping.py): rebuild the head from the config, load each fold's
-``s_{fold}_checkpoint.pt``, write per-slide ``fold_k.csv`` and
-``summary.csv``, and pool fold CSVs into bootstrap confidence intervals
-computed on the device (engine/metrics.py). Only ``run_eval`` needs
-pandas (through the slide manifest).
+``s_{fold}_checkpoint.pt`` (or the JAX package's ``.msgpack``), write
+per-slide ``fold_k.csv`` and ``summary.csv``, and pool fold CSVs into
+bootstrap confidence intervals computed on the device (engine/metrics.py).
+Only ``run_eval`` needs pandas (through the slide manifest).
 """
 from __future__ import annotations
 
@@ -19,7 +19,6 @@ import torch
 
 from hipt_abmil_atec23_tpu_torch.data.bags import BagDataset
 from hipt_abmil_atec23_tpu_torch.engine import metrics as M
-from hipt_abmil_atec23_tpu_torch.engine.checkpoint import ckpt_path
 from hipt_abmil_atec23_tpu_torch.engine.losses import make_per_sample_loss
 from hipt_abmil_atec23_tpu_torch.engine.train import (
     FoldResult, build_step_fns, evaluate_split)
@@ -52,9 +51,12 @@ def evaluate_full_bags_fused(cfg, ds: BagDataset, model,
 def evaluate_fold(cfg, fold: int, ds: BagDataset, class_counts: np.ndarray,
                   models_dir: str, n_pad: Optional[int] = None, *,
                   device="cuda") -> FoldResult:
-    """Load fold ``fold``'s ``.pt`` checkpoint from ``models_dir`` (the
-    port's, the reference's or the JAX package's export) and run the
-    deterministic forward over ``ds`` on ``device``.
+    """Load fold ``fold``'s checkpoint from ``models_dir`` and run the
+    deterministic forward over ``ds`` on ``device``: its ``.pt`` (the
+    port's, the reference's or the JAX package's export), else the JAX
+    package's own ``s_{fold}_checkpoint.msgpack`` (each package reads its
+    own format first and falls back to the other's, JAX evaluate.py:
+    76-101).
 
     A gated single-branch CLAM whose bags are not subsampled
     (``max_patches_per_slide`` unset) takes ``evaluate_full_bags_fused``;
@@ -63,26 +65,18 @@ def evaluate_fold(cfg, fold: int, ds: BagDataset, class_counts: np.ndarray,
     asks for a padded size of at least 4096 (``FUSED_EVAL_MIN_BAG``, a band
     set on a TPU); the CUDA pool has no size band (ops/
     gated_attention_pool.apply_pooled), so neither has this route."""
-    from hipt_abmil_atec23_tpu_torch.models.convert import (
-        load_torch_state_dict, mil_state_dict_from_torch)
+    from hipt_abmil_atec23_tpu_torch.engine.checkpoint import (
+        fold_ckpt, load_mil_state_dict)
     feat_dim = ds._full_bag(ds.slide_ids[0]).shape[1]
     if n_pad is None:
         n_pad = ds.pad_size()
     ds._feat_dim = feat_dim
     fns = build_step_fns(cfg, class_counts, n_pad, feat_dim, device=device)
     model = fns.init_params(torch.Generator().manual_seed(0))
-    pt = ckpt_path(models_dir, fold)
-    if not os.path.exists(pt):
-        flax = os.path.join(models_dir, f"s_{fold}_checkpoint.msgpack")
-        if os.path.exists(flax):
-            raise NotImplementedError(
-                f"{flax!r}: flax checkpoints are not ported yet (ROADMAP "
-                f"§A.7); the port reads {os.path.basename(pt)}")
-        raise FileNotFoundError(f"no checkpoint for fold {fold} in "
-                                f"{models_dir}")
-    model.load_state_dict(mil_state_dict_from_torch(
-        load_torch_state_dict(pt, checkpoint_key=None),
-        with_dropout=cfg.model.drop_out > 0, keep_instance=True))
+    model.load_state_dict(load_mil_state_dict(
+        fold_ckpt(models_dir, fold), cfg.model.model_type,
+        cfg.task.n_classes, with_dropout=cfg.model.drop_out > 0,
+        keep_instance=True))
     rng = host_rng(cfg.train.seed, 100 + fold)
     fused = (cfg.model.model_type == "clam_sb" and cfg.model.gate
              and cfg.bags.max_patches_per_slide is None)

@@ -43,8 +43,10 @@ def _svm(logits: torch.Tensor, labels: torch.Tensor, tau: float = 1.0,
          alpha: float = 1.0) -> torch.Tensor:
     """Per-sample smooth top-1 SVM (Berrada et al. 2018):
     tau * logsumexp((s_j + alpha [j != y]) / tau) - s_y."""
-    onehot = torch.nn.functional.one_hot(labels.long(), logits.shape[-1]
-                                         ).to(logits.dtype)
+    # one-hot by comparison (F.one_hot reads the labels on the host, which
+    # torch.func.vmap refuses)
+    classes = torch.arange(logits.shape[-1], device=logits.device)
+    onehot = (labels.long()[:, None] == classes).to(logits.dtype)
     aug = logits + alpha * (1.0 - onehot)
     lse = tau * torch.logsumexp(aug / tau, dim=-1)
     return lse - torch.gather(logits, -1, labels.long()[:, None])[:, 0]

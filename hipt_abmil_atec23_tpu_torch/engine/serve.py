@@ -38,7 +38,7 @@ SLIDE_EXTS = (".tif", ".tiff", ".svs", ".png", ".jpg", ".jpeg")
 class ServeConfig:
     slide_dir: str
     out_dir: str
-    ckpt_path: str                      # reference-layout torch .pt
+    ckpt_path: str                      # torch .pt, else a flax head
     encoder: EncoderConfig = field(default_factory=EncoderConfig)
     model: ModelConfig = field(default_factory=ModelConfig)
     tile: TileConfig = field(default_factory=lambda: TileConfig(
@@ -139,19 +139,14 @@ class ServeState:
 
 def _ensure_state(cfg: ServeConfig, state: ServeState) -> None:
     from hipt_abmil_atec23_tpu_torch.device import resolve_device
+    from hipt_abmil_atec23_tpu_torch.engine.checkpoint import (
+        load_mil_state_dict)
     from hipt_abmil_atec23_tpu_torch.engine.encode import build_encoder
     from hipt_abmil_atec23_tpu_torch.models.abmil import build_mil_model
-    from hipt_abmil_atec23_tpu_torch.models.convert import (
-        load_torch_state_dict, mil_state_dict_from_torch)
     state.device = resolve_device(state.device)
     if state.encoder is None:
         state.encoder = build_encoder(cfg.encoder, device=state.device)
     if state.model is None:
-        if not cfg.ckpt_path.endswith(".pt"):
-            raise NotImplementedError(
-                f"{cfg.ckpt_path!r}: the port loads reference-layout torch "
-                ".pt MIL checkpoints; flax checkpoints are not ported yet "
-                "(ROADMAP §A.7)")
         model = build_mil_model(cfg.model.model_type,
                                 size_arg=cfg.model.model_size,
                                 n_classes=cfg.n_classes, gate=cfg.model.gate)
@@ -159,9 +154,11 @@ def _ensure_state(cfg: ServeConfig, state: ServeState) -> None:
             raise ValueError(
                 f"MIL head {cfg.model.model_size!r} takes {model.size[0]}-d "
                 f"features, the encoder gives {state.encoder.feat_dim}")
-        # reference eval loader key cleanup (utils/eval_utils.py:51-57)
-        model.load_state_dict(mil_state_dict_from_torch(
-            load_torch_state_dict(cfg.ckpt_path, checkpoint_key=None)))
+        # a .pt with the reference eval loader's key cleanup (utils/
+        # eval_utils.py:51-57); any other name is a flax checkpoint, as in
+        # the JAX package (engine/serve.py:179-192)
+        model.load_state_dict(load_mil_state_dict(
+            cfg.ckpt_path, cfg.model.model_type, cfg.n_classes))
         state.model = model.to(state.device).eval()
 
 

@@ -11,8 +11,9 @@ blockmap, rasterizes the heatmap, exports the top-k ROIs, and optionally
 runs a fine overlapped pass that encodes only the coordinates the coarse
 grid did not score.
 
-MIL checkpoints are reference-layout torch ``.pt`` files; the encoder is
-engine/encode.build_encoder on ``device``.
+MIL checkpoints are reference-layout torch ``.pt`` files or the JAX
+package's flax ``.msgpack`` heads; the encoder is engine/encode.build_encoder
+on ``device``.
 """
 from __future__ import annotations
 
@@ -72,30 +73,23 @@ class HeatmapJobConfig:
         return _from_dict(cls, load_config_dict(path))
 
 
-def require_pt(ckpt_path: str) -> None:
-    """Refuse a MIL checkpoint that is not a torch ``.pt``."""
-    if not ckpt_path.endswith(".pt"):
-        raise NotImplementedError(
-            f"{ckpt_path!r}: the port loads reference-layout torch .pt MIL "
-            "checkpoints; flax checkpoints are not ported yet (ROADMAP §A.7)")
-
-
 def load_mil_head(ckpt_path: str, model_cfg: ModelConfig, n_classes: int,
                   feat_dim: int, device) -> torch.nn.Module:
-    """The MIL head of a reference-layout torch ``.pt`` checkpoint on
-    ``device``, in eval mode (the JAX driver's ``_load_mil``)."""
+    """The MIL head of a reference-layout torch ``.pt`` checkpoint, or of a
+    flax checkpoint (any other name) the JAX package wrote, on ``device``,
+    in eval mode (the JAX driver's ``_load_mil``, explain/driver.py:
+    82-101)."""
+    from hipt_abmil_atec23_tpu_torch.engine.checkpoint import (
+        load_mil_state_dict)
     from hipt_abmil_atec23_tpu_torch.models.abmil import build_mil_model
-    from hipt_abmil_atec23_tpu_torch.models.convert import (
-        load_torch_state_dict, mil_state_dict_from_torch)
-    require_pt(ckpt_path)
     model = build_mil_model(model_cfg.model_type,
                             size_arg=model_cfg.model_size,
                             n_classes=n_classes, gate=model_cfg.gate)
     if model.size[0] != feat_dim:
         raise ValueError(f"MIL head {model_cfg.model_size!r} takes "
                          f"{model.size[0]}-d features, the bag has {feat_dim}")
-    model.load_state_dict(mil_state_dict_from_torch(
-        load_torch_state_dict(ckpt_path, checkpoint_key=None)))
+    model.load_state_dict(load_mil_state_dict(
+        ckpt_path, model_cfg.model_type, n_classes))
     return model.to(device).eval()
 
 
@@ -115,7 +109,6 @@ def run_heatmap_job(cfg: HeatmapJobConfig, *, device="cuda",
     from hipt_abmil_atec23_tpu_torch.slideio.seg import (
         SegmentationResult, segment_tissue)
 
-    require_pt(cfg.ckpt_path)
     device = resolve_device(device)
     os.makedirs(cfg.save_dir, exist_ok=True)
     with open(os.path.join(cfg.save_dir, "heatmap_config.json"), "w") as f:

@@ -28,7 +28,6 @@ from typing import Any, Dict, NamedTuple, Optional
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
 from hipt_abmil_atec23_tpu_torch.ops.masking import (
     masked_bottom_k, masked_softmax, masked_top_k)
@@ -264,8 +263,11 @@ class _CLAMBase(nn.Module):
         ce_in = _masked_ce(logits_in, targets_in, valid_in.to(h.dtype))
         ce_out = _masked_ce(top_logits, torch.zeros_like(targets_in[:k]),
                             top_valid.to(h.dtype))
-        in_w = F.one_hot(torch.as_tensor(label, device=h.device).long(),
-                         c).to(h.dtype)                          # [B, C]
+        # one-hot by comparison: F.one_hot reads its input's max on the
+        # host, which torch.func.vmap (stacked folds and trials) refuses
+        classes = torch.arange(c, device=h.device)
+        in_w = (torch.as_tensor(label, device=h.device).long()[..., None]
+                == classes).to(h.dtype)                          # [B, C]
         out_w = (1.0 - in_w) if self.subtyping else torch.zeros_like(in_w)
         total = (in_w * ce_in).sum(-1) + (out_w * ce_out).sum(-1)
         if self.subtyping:

@@ -299,6 +299,65 @@ def mil_state_dict_from_jax(params: Mapping, model_type: str = "clam_sb",
     return sd
 
 
+def _linear_to_jax(sd: Mapping, prefix: str) -> Dict[str, np.ndarray]:
+    return {"kernel": np.ascontiguousarray(_np(sd[f"{prefix}.weight"]).T),
+            "bias": _np(sd[f"{prefix}.bias"])}
+
+
+def _np(t) -> np.ndarray:
+    if isinstance(t, torch.Tensor):
+        t = t.detach().cpu().float().numpy()
+    return np.asarray(t, np.float32)
+
+
+def mil_params_to_jax(sd: Mapping[str, Any], model_type: str = "clam_sb",
+                      n_classes: int = 2) -> Dict[str, Any]:
+    """A reference-layout MIL state dict (any dropout build) -> the JAX
+    package's parameter tree of that head, with its keys in the order
+    flax's ``init`` gives them, so ``engine/flax_ckpt.to_bytes`` of it is
+    the file the JAX package's ``save_params`` writes. The inverse of
+    ``mil_state_dict_from_jax``."""
+    sd = mil_state_dict_from_torch(sd, keep_instance=True)
+    if model_type == "mil":
+        p = {"fc": _linear_to_jax(sd, "fc.0" if n_classes > 2
+                                  else "classifier.0")}
+        if n_classes > 2:
+            p["classifier"] = {
+                "kernel": np.stack([_np(sd[f"classifiers.{c}.weight"])[0]
+                                    for c in range(n_classes)], 1),
+                "bias": np.concatenate([_np(sd[f"classifiers.{c}.bias"])
+                                        for c in range(n_classes)])}
+        else:
+            p["classifier"] = _linear_to_jax(sd, "classifier.2")
+        return {"params": p}
+    if model_type not in ("clam_sb", "clam_mb"):
+        raise ValueError(f"unknown model_type {model_type!r}")
+    a = "attention_net.2"
+    if f"{a}.attention_a.0.weight" in sd:
+        att = {"attn_a": _linear_to_jax(sd, f"{a}.attention_a.0"),
+               "attn_b": _linear_to_jax(sd, f"{a}.attention_b.0"),
+               "attn_c": _linear_to_jax(sd, f"{a}.attention_c")}
+    else:
+        att = {"attn_a": _linear_to_jax(sd, f"{a}.module.0"),
+               "attn_c": _linear_to_jax(sd, f"{a}.module.2")}
+    p = {"fc": _linear_to_jax(sd, "attention_net.0"), "attention": att}
+    if "instance_classifiers.0.weight" in sd:
+        p["instance_w"] = np.stack(
+            [_np(sd[f"instance_classifiers.{c}.weight"]).T
+             for c in range(n_classes)])
+        p["instance_b"] = np.stack(
+            [_np(sd[f"instance_classifiers.{c}.bias"])
+             for c in range(n_classes)])
+    if model_type == "clam_mb":
+        p["bag_w"] = np.stack([_np(sd[f"classifiers.{c}.weight"])[0]
+                               for c in range(n_classes)])
+        p["bag_b"] = np.concatenate([_np(sd[f"classifiers.{c}.bias"])
+                                     for c in range(n_classes)])
+    else:
+        p["classifier"] = _linear_to_jax(sd, "classifiers")
+    return {"params": p}
+
+
 def clam_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     """JAX CLAM_SB params -> the port's CLAM_SB state dict: the reference
     layout that the JAX package's clam_params_to_torch writes

@@ -1,2 +1,3 @@
 """Device-mesh parallelism on torch.distributed: instance-axis (sequence-
-parallel) sharding of one full bag, its trainer, and process-group set-up."""
+parallel) sharding of one full bag, its trainer, fold-parallel training,
+and process-group set-up."""

@@ -7,7 +7,8 @@ reference-layout .pt CLAM head (its serve_config.json equal to the JAX
 package's write_config output for the same flags), and ``splits -> train
 -> eval -> bootstrap`` and ``count`` on synthetic feature bags (the same
 file names and columns; the JAX CLI's eval reads the port's checkpoints).
-Every refusal names the ROADMAP item that ports what is refused."""
+serve also scores a flax head. The tuning, fold-parallel, export and
+parity routes are in test_torch_cli_routes.py and test_torch_flax_ckpt.py."""
 import contextlib
 import csv
 import dataclasses
@@ -151,56 +152,53 @@ def test_cli_serve_once(work, tmp_path):
 
 
 @pytest.mark.parametrize("argv,error,match", [
-    (["serve", "--ckpt", "head.ckpt"], NotImplementedError, "ROADMAP §A.7"),
     (["serve", "--model_type", "transmil"], ValueError,
      "unknown model_type 'transmil'"),
     (["serve", "--model_type", "clam_mb"], None, None),
-    (["train", "--tuning"], NotImplementedError, "ROADMAP §A.10"),
-    (["train", "--trial_parallel"], NotImplementedError, "ROADMAP §A.10"),
-    (["train", "--fold_parallel"], NotImplementedError, "ROADMAP §A.10"),
-    (["train", "--sampling", "--tuning"], NotImplementedError,
-     "ROADMAP §A.10"),
-    (["eval", "--use_sampling", "--tune_sampling"], NotImplementedError,
-     "ROADMAP §A.10")])
-def test_cli_refuses_what_is_not_ported(argv, error, match, tmp_path, work):
-    """Checkpoint formats and train / eval routes the port does not have
-    yet raise before any work, naming the ROADMAP item that ports them
-    (every encoder runs: test_cli_runs_the_other_encoders; DRAS sampling
-    runs, but not its tuning: test_cli_sampling_and_knn); a head type
-    that does not exist is refused before the first drain
+    (["serve", "--ckpt", "head.ckpt"], None, None)])
+def test_cli_serve_head_kinds(argv, error, match, tmp_path, work):
+    """A head type that does not exist is refused before the first drain
     with build_mil_model's ValueError (a daemon would log a failed drain
-    and poll again). A clam_mb head is served now (``error`` None): a
-    slide scored through HIPT_4K (f32, 512 px regions) from a
-    reference-layout .pt of that head."""
-    if error is None:
-        inbox = tmp_path / "inbox"
-        inbox.mkdir()
-        os.link(work[1] / "b.tif", inbox / "b.tif")
-        ckpt = str(tmp_path / "head.pt")
-        torch.save(build_mil_model(argv[2], size_arg="hipt_smaller")
-                   .state_dict(), ckpt)
-        assert cli.main(argv + [
-            "--slide_dir", str(inbox), "--out_dir", str(tmp_path / "o"),
-            "--ckpt", ckpt, "--patch_size", "512", "--use_otsu", "--a_t",
-            "1", "--float32", "--once", "--min_stable_s", "0",
-            "--device", "cpu"]) == 0
-        rec = json.load(open(tmp_path / "o" / "results" / "b.json"))
-        assert rec["status"] == "done" and abs(sum(rec["p"]) - 1) < 1e-5
+    and poll again). A clam_mb head is served from a reference-layout .pt;
+    a flax checkpoint (any name but .pt, here ``head.ckpt``, written by the
+    port's flax writer as the JAX package writes it) is served too. Each
+    scores a slide through HIPT_4K (f32, 512 px regions) with the
+    probabilities of the head itself on the bag serve kept (within
+    1e-6)."""
+    if error is not None:
+        with pytest.raises(error, match=match):
+            cli.main(argv + ["--slide_dir", str(tmp_path), "--out_dir",
+                             str(tmp_path / "o"), "--ckpt", "head.pt",
+                             "--device", "cpu"])
+        assert not os.path.exists(tmp_path / "o")
         return
-    base = {"encode": ["--data_h5_dir", str(tmp_path), "--data_slide_dir",
-                       str(tmp_path), "--feat_dir", str(tmp_path / "f")],
-            "serve": ["--slide_dir", str(tmp_path), "--out_dir",
-                      str(tmp_path / "o")],
-            "train": ["--csv_path", "x.csv", "--feat_dir", str(tmp_path),
-                      "--results_dir", str(tmp_path / "o")],
-            "eval": ["--csv_path", "x.csv", "--feat_dir", str(tmp_path),
-                     "--models_dir", str(tmp_path), "--save_dir",
-                     str(tmp_path / "o")]}[argv[0]]
-    if argv[0] == "serve" and "--ckpt" not in argv:
-        base += ["--ckpt", "head.pt"]
-    with pytest.raises(error, match=match):
-        cli.main(argv + base + ["--device", "cpu"])
-    assert not os.path.exists(tmp_path / "o")
+    from hipt_abmil_atec23_tpu_torch.engine import serve
+    from hipt_abmil_atec23_tpu_torch.engine.flax_ckpt import save_params
+    from hipt_abmil_atec23_tpu_torch.models.convert import mil_params_to_jax
+    inbox = tmp_path / "inbox"
+    inbox.mkdir()
+    os.link(work[1] / "b.tif", inbox / "b.tif")
+    flax = "--ckpt" in argv
+    model_type = "clam_sb" if flax else argv[2]
+    head = build_mil_model(model_type, size_arg="hipt_smaller").eval()
+    ckpt = str(tmp_path / ("head.ckpt" if flax else "head.pt"))
+    if flax:
+        save_params(ckpt, mil_params_to_jax(head.state_dict(), model_type))
+    else:
+        torch.save(head.state_dict(), ckpt)
+    out = tmp_path / "o"
+    assert cli.main([
+        "serve", "--model_type", model_type, "--slide_dir", str(inbox),
+        "--out_dir", str(out), "--ckpt", ckpt, "--patch_size", "512",
+        "--use_otsu", "--a_t", "1", "--float32", "--once", "--min_stable_s",
+        "0", "--save_features", "--device", "cpu"]) == 0
+    rec = json.load(open(out / "results" / "b.json"))
+    assert rec["status"] == "done" and abs(sum(rec["p"]) - 1) < 1e-5
+    # the head itself on the bag serve kept
+    feats = FeatureBagStore(str(out / "features")).load_features("b")
+    want = serve._mil_bucketed(serve.ServeState(device="cpu", model=head),
+                               feats).y_prob[0].numpy()
+    np.testing.assert_allclose(rec["p"], want, rtol=0, atol=1e-6)
 
 
 @pytest.fixture(scope="module")

@@ -6,7 +6,9 @@ JAX package's on the CPU.
   JAX package's ``evaluate_fold`` reading the same file through its torch
   fallback: the subsampled route (both draw the same bags) and the
   full-bag route (the port's pool, B.2's plain version here, against the
-  JAX package's padded forward), probabilities and loss within 1e-5.
+  JAX package's padded forward), probabilities and loss within 1e-5;
+  and on a JAX-written ``s_0_checkpoint.msgpack`` (flax) alone, both
+  routes, probabilities within 1e-6.
 - The bootstrap chunk on one shared index matrix against the JAX
   package's ``_bootstrap_chunk``, within 1e-6; the CIs of
   ``bootstrap_from_fold_csvs`` (different resample streams) within 0.01.
@@ -85,15 +87,42 @@ def test_evaluate_fold_matches_jax(synth, tmp_path, max_patches):
     assert abs(got.test_auc - want.test_auc) <= 1e-6
 
 
-def test_evaluate_fold_refuses_a_flax_checkpoint(synth, tmp_path):
+@pytest.mark.parametrize("max_patches", [32, None],
+                         ids=["subsampled", "full-bag"])
+def test_evaluate_fold_reads_a_flax_checkpoint(synth, tmp_path, max_patches):
+    """A head the JAX package initialised and saved as its own
+    s_0_checkpoint.msgpack (flax), with no .pt beside it: the port's
+    evaluate_fold falls back to it (engine/flax_ckpt.py, no flax) and
+    gives the JAX package's probabilities within 1e-6."""
+    import jax
+    from hipt_abmil_atec23_tpu.engine.checkpoint import (
+        save_params as jax_save)
+    from hipt_abmil_atec23_tpu.engine.train import (
+        build_step_fns as jax_step_fns)
     manifest, jstore = synth
-    pc = pcfg.ExperimentConfig()
-    open(tmp_path / "s_0_checkpoint.msgpack", "wb").close()
-    ds = pbags.BagDataset(list(manifest.slide_ids), manifest.labels,
-                          pbags.FeatureBagStore(jstore.feat_dir), pc.bags)
-    with pytest.raises(NotImplementedError, match="ROADMAP §A.7"):
-        peval.evaluate_fold(pc, 0, ds, manifest.class_counts(),
-                            str(tmp_path), device="cpu")
+    d = {"task": {"n_classes": 2, "label_dict": {"0": 0, "1": 1}},
+         "bags": {"max_patches_per_slide": max_patches},
+         "model": {"model_type": "clam_sb", "model_size": "hipt_smaller"},
+         "train": {"seed": 2}}
+    jc, pc = jcfg.ExperimentConfig.from_dict(d), \
+        pcfg.ExperimentConfig.from_dict(d)
+    ids, labels = list(manifest.slide_ids), manifest.labels
+    counts = manifest.class_counts()
+    params = jax_step_fns(jc, counts, 8, 192).init_params(
+        jax.random.PRNGKey(5))
+    jax_save(str(tmp_path / "s_0_checkpoint.msgpack"), params)
+    pds = pbags.BagDataset(ids, labels, pbags.FeatureBagStore(jstore.feat_dir),
+                           pc.bags)
+    jds = jbags.BagDataset(ids, labels, jstore, jc.bags)
+    got = peval.evaluate_fold(pc, 0, pds, counts, str(tmp_path),
+                              device="cpu")
+    want = jeval.evaluate_fold(jc, 0, jds, counts, str(tmp_path))
+    np.testing.assert_allclose(got.test_probs, want.test_probs, rtol=0,
+                               atol=1e-6)
+    assert abs(got.test_auc - want.test_auc) <= 1e-6
+    os.remove(tmp_path / "s_0_checkpoint.msgpack")
+    with pytest.raises(FileNotFoundError, match="no checkpoint for fold 0"):
+        peval.evaluate_fold(pc, 0, pds, counts, str(tmp_path), device="cpu")
 
 
 @pytest.mark.parametrize("n_classes", [2, 3])

@@ -9,8 +9,8 @@ CLAM_SB head: probabilities and blockmap scores within 1e-5; once both
 packages' scores rank alike, the heatmaps and ROI exports are the same
 files byte for byte. The CLI's single-slide path writes the JAX CLI's
 files; ``--hierarchical --patch_gallery`` with DINO-layout torch ViT
-checkpoints and ``--config`` run end to end; a flax checkpoint is refused
-naming ROADMAP §A.7."""
+checkpoints and ``--config`` run end to end, also from a flax
+``.msgpack`` of the head."""
 import dataclasses
 import json
 import os
@@ -248,8 +248,8 @@ def test_cli_heatmap_galleries_from_torch_checkpoints(work, one_slide,
 def test_cli_heatmap_config_mode(work, tmp_path, monkeypatch, capsys):
     """--config runs the batch job on --device (every bag from the
     feature cache); --confirm prints the config and 'N' stops before any
-    work; a flax checkpoint is refused naming ROADMAP §A.7, in both
-    modes."""
+    work; a flax .msgpack of the same head gives the same predictions
+    within 1e-6."""
     _, slides, ckpt, _ = work
     feat_dir = tmp_path / "feats"
     _cached_bag(slides, feat_dir, "hm0")
@@ -274,13 +274,21 @@ def test_cli_heatmap_config_mode(work, tmp_path, monkeypatch, capsys):
     pred = json.load(open(tmp_path / "out" / "predictions.json"))
     assert pred[0]["slide_id"] == "hm0" and abs(sum(pred[0]["p"]) - 1) < 1e-5
 
-    cfg.write_text(json.dumps({**job, "ckpt_path": "head.msgpack"}))
-    for argv in (["--config", str(cfg)],
-                 ["--slide", "s.tif", "--coords_h5", "c.h5", "--ckpt",
-                  "head.msgpack", "--save_dir", str(tmp_path / "o")]):
-        with pytest.raises(NotImplementedError, match="ROADMAP §A.7"):
-            cli.main(["heatmap", *argv, "--device", "cpu"])
-    assert not (tmp_path / "o").exists()
+    # the same head as a flax checkpoint (the JAX package's format,
+    # written here without flax): the same predictions
+    from hipt_abmil_atec23_tpu_torch.engine.flax_ckpt import save_params
+    from hipt_abmil_atec23_tpu_torch.models.convert import (
+        load_torch_state_dict, mil_params_to_jax)
+    flax_head = str(tmp_path / "head.msgpack")
+    save_params(flax_head, mil_params_to_jax(
+        load_torch_state_dict(ckpt, checkpoint_key=None)))
+    cfg.write_text(json.dumps({**job, "ckpt_path": flax_head,
+                               "save_dir": str(tmp_path / "flax")}))
+    assert cli.main(["heatmap", "--config", str(cfg), "--device",
+                     "cpu"]) == 0
+    again = json.load(open(tmp_path / "flax" / "predictions.json"))
+    np.testing.assert_allclose(again[0]["p"], pred[0]["p"], rtol=0,
+                               atol=1e-6)
 
 
 def test_load_with_coords_matches_jax(tmp_path):
