@@ -184,6 +184,21 @@ Phases (any failure exits non-zero, and no result line is printed):
      evaluate_fold and the heatmap driver's loader, against the .pt that
      export writes of it (within 1e-6). One ``tune {...}`` line carries
      the numbers and the card; B.2's record gains phase 14's launches.
+  15. multi-device at world 1 (after phase 14; the dry run of
+     hipt_abmil_atec23_tpu_torch/dryrun.py): resolve_device("cuda") is
+     cuda:0 under LOCAL_RANK=0 and raises under a LOCAL_RANK past the
+     card count; counts zeroed; entry() (CLAM_SB hipt_smaller and a
+     depth-2 bf16 vit_tiny through B.1) against the same weights on the
+     plain versions (the block tolerance); dryrun_multichip(1) on NCCL
+     (its five parts; B.1 in the data-parallel encode, held against the
+     same HIPT_4K's plain blocks; B.4 in the sharded forward and B.2 on
+     the whole bag, each held against the pool's plain version); the
+     data-parallel
+     encode of phase 2's two 4096^2 regions through the full-width
+     fused-block HIPT_4K (bf16) over a data mesh of one, bit-equal to
+     forward, ms per region of both. fused_block, gated_pool and
+     gated_pool_partial non-zero after. One ``dryrun {...}`` line carries
+     the numbers and the card.
   8. profile (only with --profile PATH): where one warm encode_stream's
      time goes, stage by stage (the colour and DCT decode stages through
      the kernels beside their plain chains), and torch.profiler kernel
@@ -4164,6 +4179,127 @@ def phase_tune(dev, smi, records, *, n_slides=60, bag_range=(40, 600),
     return {"launches": launches, "owned": {}}
 
 
+# ------------------------------------------------------------------ phase 15
+DRYRUN_KERNELS = ("fused_block", "gated_pool", "gated_pool_partial")
+
+
+def local_rank_check() -> None:
+    """ROADMAP C.4 on this machine: under LOCAL_RANK=0 an index-less
+    "cuda" is card 0, and a LOCAL_RANK at the card count raises."""
+    from hipt_abmil_atec23_tpu_torch.device import resolve_device
+    past = torch.cuda.device_count()
+    prev = os.environ.get("LOCAL_RANK")
+    try:
+        os.environ["LOCAL_RANK"] = "0"
+        got = resolve_device("cuda")
+        os.environ["LOCAL_RANK"] = str(past)
+        try:
+            resolve_device("cuda")
+            refused = None
+        except RuntimeError as e:
+            refused = str(e)
+    finally:
+        if prev is None:
+            os.environ.pop("LOCAL_RANK")
+        else:
+            os.environ["LOCAL_RANK"] = prev
+    log(f"resolve_device('cuda'): {got} under LOCAL_RANK=0; under "
+        f"LOCAL_RANK={past}: {refused}")
+    if got != torch.device("cuda", 0) or refused is None:
+        raise SystemExit("resolve_device ignores LOCAL_RANK (ROADMAP C.4)")
+
+
+def phase_dryrun(dev, smi, regions, *, widths=None) -> dict:
+    """Multi-device at world 1: resolve_device under LOCAL_RANK (on a
+    card); counts zeroed; entry() against the same weights on the plain
+    versions (BLOCK_TOL); dryrun_multichip(1) (NCCL on the card), which
+    on a card holds its part 2 features (B.1) and its part 3 logits and
+    scores (B.4, B.2) against the plain versions and raises past its
+    BLOCK_TOL / POOL_TOL; the data-parallel encode of ``regions`` (uint8 [R, H, W, 3]) over a data
+    mesh of one through the full-width fused-block HIPT_4K (``widths``
+    narrows it), bit-equal to the same model's forward, ms per region of
+    both. fused_block, gated_pool and gated_pool_partial must be non-zero
+    after."""
+    import copy
+    import torch.distributed as dist
+    from hipt_abmil_atec23_tpu_torch import dryrun
+    from hipt_abmil_atec23_tpu_torch.parallel.data_parallel import (
+        encode_data_parallel)
+    from hipt_abmil_atec23_tpu_torch.parallel.mesh import make_mesh
+    from hipt_abmil_atec23_tpu_torch.parallel.multihost import init_multihost
+
+    out = {"card": smi}
+    if dev.type == "cuda":
+        local_rank_check()
+    zero_counts()
+    t0 = time.perf_counter()
+    fn, args = dryrun.entry(dev)
+    got = fn(*args)
+    plain_vit = copy.deepcopy(args[1])
+    for m in plain_vit.modules():
+        if isinstance(m, Block):
+            m.plain = True
+    want = fn(args[0], plain_vit, *args[2:])
+    errs = []
+    for name, g, w in zip(("logits", "y_prob", "a_raw", "cls"), got, want):
+        g, w = g.float(), w.float()
+        err = (g - w).abs().max().item()
+        if not (g.shape == w.shape and torch.isfinite(g).all() and bool(
+                ((g - w).abs() <= BLOCK_TOL[0]
+                 + BLOCK_TOL[1] * w.abs()).all())):
+            raise SystemExit(f"entry(): {name} {tuple(g.shape)} disagrees "
+                             f"with its plain version ({err:.3g})")
+        errs.append(err)
+    out["entry_err"] = max(errs)
+    log(f"entry(): CLAM_SB hipt_smaller {tuple(got[0].shape)} and vit_tiny "
+        f"depth 2 bf16 CLS {tuple(got[3].shape)} against the plain "
+        f"versions, max |d| {out['entry_err']:.3g} (tolerance {BLOCK_TOL})")
+
+    t1 = time.perf_counter()
+    dry = dryrun.dryrun_multichip(1, dev)[0]
+    out["dryrun_s"] = time.perf_counter() - t1
+    out["dryrun_plain_err"] = {
+        "part2_features": dry["part2"].get("plain_err"),
+        "part3_pool": dry["part3"]["plain_err"]}
+
+    enc = make_hipt_encoder(torch.bfloat16, use_fused_block=True,
+                            generator=torch.Generator().manual_seed(15),
+                            **(widths or {})).to(dev).eval()
+    x = hipt_eval_normalize(regions)
+    n = len(x)
+    sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" \
+        else (lambda: None)
+    init_multihost(device=dev)
+    try:
+        mesh = make_mesh([("data", dist.get_world_size())], dev.type)
+        with torch.no_grad():
+            direct = enc(x)
+            dp = encode_data_parallel(enc, x, mesh)
+            sync()
+            if not (dp.shape == (n, enc.feat_dim) and torch.equal(dp, direct)):
+                raise SystemExit("data-parallel encode differs from forward "
+                                 f"({(dp - direct).abs().max().item():.3g})")
+            ms = gpu_timer(lambda: enc(x), iters=5) / n
+            ms_dp = gpu_timer(lambda: encode_data_parallel(enc, x, mesh),
+                              iters=5) / n
+    finally:
+        dist.destroy_process_group()
+    out.update(encode_ms_per_region=ms, dp_encode_ms_per_region=ms_dp,
+               dp_over_direct=ms_dp / ms)
+    log(f"data-parallel encode, world 1: {n} regions of "
+        f"{regions.shape[1]}^2, features {tuple(dp.shape)} bit-equal to "
+        f"forward; ms per region {ms_dp:.3f} data-parallel, {ms:.3f} "
+        f"forward ({ms_dp / ms:.4f}x)")
+    launches = read_counts()
+    out["launches"] = {k: launches[k] for k in DRYRUN_KERNELS}
+    out["phase_s"] = time.perf_counter() - t0
+    log("dryrun " + json.dumps(out))
+    missing = [k for k in DRYRUN_KERNELS if launches[k] == 0]
+    if missing:
+        raise SystemExit(f"the dryrun path never launched {missing}")
+    return {"launches": launches, "owned": {}}
+
+
 def set_launches(records, paths) -> None:
     """Each record's launches from the run of the path that owns its kernel
     (``paths``: name -> a phase's result, whose "owned" holds the counts
@@ -4214,6 +4350,7 @@ def main() -> int:
     rres = phase_resnet(dev, smi, planes, dct_slides[0], kres["records"])
     dras = phase_dras(dev, smi, kres["records"], online=rres["online"])
     tune = phase_tune(dev, smi, kres["records"])
+    dry = phase_dryrun(dev, smi, regions)
     if args.profile:
         phase_profile(dev, res["encoder"], pres["encoder"], planes[0],
                       dct_slides[0], args.profile)
@@ -4222,7 +4359,7 @@ def main() -> int:
                            "per_op": pres, "sharded": sres,
                            "encode_stage": eres, "train_eval": tres,
                            "explain": xres, "resnet": rres,
-                           "dras": dras, "tune": tune})
+                           "dras": dras, "tune": tune, "dryrun": dry})
     records["fused_block"].update(
         launches_vit256=eres["launches_vit256"],
         ms_256x264x384=eres.get("block_ms_vit256"))

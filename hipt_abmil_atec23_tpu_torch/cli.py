@@ -501,8 +501,8 @@ def _train_tuning(a, cfg, manifest, store, device) -> None:
 def _train_fold_parallel(cfg, manifest, store, device) -> None:
     """Every fold at once (parallel/fold_parallel.py). Under a launcher
     with more than one rank (torchrun) the folds split over the process
-    group's ranks when the world size divides k; otherwise one process
-    trains them all. Rank 0 writes summary.csv."""
+    group's ranks when the world size divides k; otherwise each rank
+    trains them all. Rank 0 alone writes summary.csv."""
     import pandas as pd
     import torch.distributed as dist
     from hipt_abmil_atec23_tpu_torch.engine.experiment import (
@@ -523,7 +523,7 @@ def _train_fold_parallel(cfg, manifest, store, device) -> None:
             mesh = make_mesh([("fold", world)], device.type)
     res = train_folds_parallel(cfg, folds, manifest.class_counts(), mesh,
                                device=device)
-    if mesh is not None and dist.get_rank():
+    if dist.is_initialized() and dist.get_rank():
         return
     summary = pd.DataFrame({"folds": np.arange(k), **res.summary})
     os.makedirs(cfg.results_dir, exist_ok=True)

@@ -3,6 +3,7 @@ own: callers pass one, and the CUDA entry points ask for it here."""
 from __future__ import annotations
 
 import contextlib
+import os
 
 import torch
 
@@ -18,12 +19,24 @@ def require_cuda() -> torch.device:
 
 
 def resolve_device(device) -> torch.device:
-    """torch.device from a device or its name; a CUDA device must exist."""
+    """torch.device from a device or its name; a CUDA device must exist.
+
+    An index-less ``"cuda"`` is the launcher's card where one set
+    ``LOCAL_RANK`` (``torchrun``, ``dryrun_multichip``: one process per
+    card), else the current device. A ``LOCAL_RANK`` at or past the card
+    count raises; an explicit index is kept."""
     device = torch.device(device)
     if device.type == "cuda":
         require_cuda()
         if device.index is None:
-            device = torch.device("cuda", torch.cuda.current_device())
+            local = os.environ.get("LOCAL_RANK")
+            if local is None:
+                return torch.device("cuda", torch.cuda.current_device())
+            k, n = int(local), torch.cuda.device_count()
+            if not 0 <= k < n:
+                raise RuntimeError(f"LOCAL_RANK={k} names no card: "
+                                   f"{n} CUDA device(s) visible")
+            device = torch.device("cuda", k)
     return device
 
 

@@ -11,6 +11,9 @@ every lane runs the same head code as ``train_fold``.
 
 Over a ``DeviceMesh``'s ``fold`` axis each rank holds a contiguous block of
 the lanes (``lane_block``) and ``gather_lanes`` all-gathers per-lane values.
+``axes`` names the mesh axes the lanes split over, ``("fold",)`` by
+default; several axes split them over every rank of those axes in rank
+order, as JAX's ``P(("host", "fold"))`` does on a 2-D mesh.
 """
 from __future__ import annotations
 
@@ -88,33 +91,63 @@ def vmap_lanes(fn: Callable, in_dims) -> Callable:
     return vmap(fn, in_dims=in_dims, randomness="different")
 
 
-def _fold_axis(mesh):
-    """(process group, size, this rank's index) of the mesh's ``fold``
-    axis."""
-    group = mesh.get_group("fold")
+def step_lanes(step_f, params: List[torch.Tensor], names: List[str],
+               optimizer, feats: torch.Tensor, mask: torch.Tensor,
+               labels: torch.Tensor, generator) -> torch.Tensor:
+    """One epoch's optimizer steps on every lane: ``step_f`` (the vmapped
+    step of ``head_fns``) over ``feats`` [F, S, B, N, D] (mask, labels
+    alike) step by step, ``optimizer`` on the stacked leaves ``params``
+    (named ``names``). Returns each lane's bag loss summed over the S
+    steps [F]."""
+    sums = torch.zeros(feats.shape[0], device=feats.device)
+    for s in range(feats.shape[1]):
+        grads, (bl, _, _) = step_f(dict(zip(names, params)), feats[:, s],
+                                   mask[:, s], labels[:, s], generator)
+        for p, name in zip(params, names):
+            p.grad = grads[name]
+        optimizer.step()
+        sums += bl
+    return sums
+
+
+def _lane_group(mesh, axes=("fold",)):
+    """(process group, size, this rank's index) of the ranks that split the
+    lanes: one axis's group, or for several axes the whole default group,
+    which must be what the mesh covers with ``axes`` its dimensions in
+    order (torch has no group over a subset of a mesh's axes here)."""
     import torch.distributed as dist
-    return group, dist.get_world_size(group), dist.get_rank(group)
+    axes = tuple(axes)
+    if len(axes) == 1:
+        group = mesh.get_group(axes[0])
+        return group, dist.get_world_size(group), dist.get_rank(group)
+    if axes != tuple(mesh.mesh_dim_names) \
+            or mesh.size() != dist.get_world_size():
+        raise ValueError(f"lanes split over {axes} need a mesh of exactly "
+                         f"those axes over every rank, got "
+                         f"{mesh.mesh_dim_names} of {mesh.size()} of "
+                         f"{dist.get_world_size()} ranks")
+    return None, dist.get_world_size(), dist.get_rank()
 
 
-def lane_block(n: int, mesh) -> range:
+def lane_block(n: int, mesh, axes=("fold",)) -> range:
     """The lanes this rank holds: all of them without a mesh, else its
-    contiguous n / W of them along the mesh's ``fold`` axis."""
+    contiguous n / W of them along the mesh's ``axes``."""
     if mesh is None:
         return range(n)
-    _, w, r = _fold_axis(mesh)
+    _, w, r = _lane_group(mesh, axes)
     if n % w:
         raise ValueError(f"{n} lanes do not divide over {w} ranks")
     return range(r * n // w, (r + 1) * n // w)
 
 
-def gather_lanes(x: torch.Tensor, mesh) -> torch.Tensor:
+def gather_lanes(x: torch.Tensor, mesh, axes=("fold",)) -> torch.Tensor:
     """Every rank's [n_local, ...] block gathered in rank order along the
-    mesh's ``fold`` axis ([n, ...] on every rank); ``x`` itself without a
+    mesh's ``axes`` ([n, ...] on every rank); ``x`` itself without a
     mesh."""
     if mesh is None:
         return x
     import torch.distributed as dist
-    group, w, _ = _fold_axis(mesh)
+    group, w, _ = _lane_group(mesh, axes)
     parts = [torch.empty_like(x) for _ in range(w)]
     dist.all_gather(parts, x.contiguous(), group=group)
     return torch.cat(parts)
@@ -126,7 +159,7 @@ def gather_objects(obj, mesh) -> list:
     if mesh is None:
         return [obj]
     import torch.distributed as dist
-    group, w, _ = _fold_axis(mesh)
+    group, w, _ = _lane_group(mesh)
     out = [None] * w
     dist.all_gather_object(out, obj, group=group)
     return out

@@ -236,7 +236,7 @@ def run_tuning_hetero(
     validation loss over the last 10 epochs)."""
     from hipt_abmil_atec23_tpu_torch.engine.experiment import (
         make_fold_datasets)
-    from hipt_abmil_atec23_tpu_torch.engine.stacked import _fold_axis
+    from hipt_abmil_atec23_tpu_torch.engine.stacked import _lane_group
     from hipt_abmil_atec23_tpu_torch.engine.tune import (
         DEFAULT_SEARCH_SPACE, ASHAScheduler, apply_trial_config,
         sample_configs, write_rows)
@@ -246,7 +246,7 @@ def run_tuning_hetero(
     max_t = max_epochs or base_cfg.train.max_epochs
     asha = ASHAScheduler(max_t=max_t, grace_period=grace_period,
                          reduction_factor=reduction_factor)
-    ndev = _fold_axis(mesh)[1] if mesh is not None else 1
+    ndev = _lane_group(mesh)[1] if mesh is not None else 1
 
     buckets: Dict[Tuple, List[int]] = {}
     for i, c in enumerate(configs):

@@ -67,7 +67,10 @@ class ViTConfig:
 
 
 VIT_CONFIGS = {
+    "vit_tiny": ViTConfig(embed_dim=192, depth=12, num_heads=3),
     "vit_small": ViTConfig(embed_dim=384, depth=12, num_heads=6),
+    # D 768 is past the fused block kernel's D <= 384: per-op or plain only
+    "vit_base": ViTConfig(embed_dim=768, depth=12, num_heads=12),
 }
 
 

@@ -40,6 +40,21 @@ def _fold_heads(fns, seed: int, folds) -> List[torch.nn.Module]:
     return [fns.init_params(torch_generator(seed, f)) for f in folds]
 
 
+def stacked_folds(fns, cfg, class_counts, models: List[torch.nn.Module]):
+    """The lanes' stacked program, one head of ``models`` per lane: (leaf
+    names, the stacked leaves, the configured optimizer on them, the
+    vmapped train step and eval of ``engine.stacked.head_fns``, each lane's
+    data on axis 0)."""
+    from hipt_abmil_atec23_tpu_torch.engine.stacked import (
+        head_fns, stack_heads, vmap_lanes)
+    base, stacked = stack_heads(models)
+    params = [v.detach().requires_grad_(False) for v in stacked.values()]
+    step_fn, eval_fn = head_fns(base, cfg, class_counts)
+    return (list(stacked), params, fns.tx(params),
+            vmap_lanes(step_fn, (0, 0, 0, 0, None)),
+            vmap_lanes(eval_fn, (0, 0, 0, 0)))
+
+
 def train_folds_parallel(
     cfg,
     fold_datasets: List[Tuple[BagDataset, BagDataset, BagDataset]],
@@ -58,8 +73,7 @@ def train_folds_parallel(
     package."""
     from hipt_abmil_atec23_tpu_torch.device import resolve_device
     from hipt_abmil_atec23_tpu_torch.engine.stacked import (
-        gather_lanes, gather_objects, head_fns, lane_block, stack_heads,
-        unstack, vmap_lanes)
+        gather_lanes, gather_objects, lane_block, step_lanes, unstack)
     from hipt_abmil_atec23_tpu_torch.engine.train import (
         _epoch_tensors, _tensor, build_step_fns)
     from hipt_abmil_atec23_tpu_torch.utils.seeding import (
@@ -81,13 +95,8 @@ def train_folds_parallel(
     fns = build_step_fns(cfg, class_counts, n_pad, feat_dim, device=device)
     folds = lane_block(n_folds, mesh)
     local = list(folds)
-    base, stacked = stack_heads(_fold_heads(fns, tc.seed, folds))
-    params = [v.detach().requires_grad_(False) for v in stacked.values()]
-    names = list(stacked)
-    optimizer = fns.tx(params)
-    step_fn, eval_fn = head_fns(base, cfg, class_counts)
-    step_f = vmap_lanes(step_fn, (0, 0, 0, 0, None))
-    eval_f = vmap_lanes(eval_fn, (0, 0, 0, 0))
+    names, params, optimizer, step_f, eval_f = stacked_folds(
+        fns, cfg, class_counts, _fold_heads(fns, tc.seed, folds))
     dropout_gen = torch_generator(tc.seed, 777, folds.start, device=device)
     rngs = {f: host_rng(tc.seed, f) for f in local}
 
@@ -136,14 +145,8 @@ def train_folds_parallel(
         f, m, lab = (_tensor(x, device) for x in epoch_data())
         lab = lab.long()
         old = [p.detach().clone() for p in params] if stopped.any() else None
-        sums = torch.zeros(len(local), device=device)
-        for s in range(steps):
-            grads, (bl, _, _) = step_f(as_dict(params), f[:, s], m[:, s],
-                                       lab[:, s], dropout_gen)
-            for p, name in zip(params, names):
-                p.grad = grads[name]
-            optimizer.step()
-            sums += bl
+        sums = step_lanes(step_f, params, names, optimizer, f, m, lab,
+                          dropout_gen)
         # folds that stopped keep their parameters (their results are
         # ignored); the optimizer state advanced for every fold
         if old is not None:

@@ -30,16 +30,23 @@ def _free_port() -> int:
 
 def init_multihost(coordinator_address: Optional[str] = None,
                    num_processes: Optional[int] = None,
-                   process_id: Optional[int] = None, *, device) -> int:
+                   process_id: Optional[int] = None, *, device,
+                   init_method: Optional[str] = None) -> int:
     """Join (or create) the default process group; returns the world size.
 
-    The backend follows ``device``: NCCL for a CUDA device (which becomes
-    this process's current device), gloo for the CPU. Under ``torchrun``
-    (RANK and WORLD_SIZE set, no arguments) the group rendezvouses through
-    ``env://``; otherwise through ``tcp://coordinator_address`` with
-    ``num_processes`` ranks, this one ``process_id``. With no arguments and
-    no launcher it forms a group of one on a free localhost port: the
-    sharded forward always needs a group. An existing group is kept."""
+    The backend follows ``device``: NCCL for a CUDA device, gloo for the
+    CPU. An index-less ``"cuda"`` resolves to the launcher's LOCAL_RANK
+    (``device.resolve_device``), and that card becomes this process's
+    current device before any group or mesh exists, so each rank's NCCL
+    communicator sits on its own card. Under a launcher (RANK and
+    WORLD_SIZE set, no arguments) the group takes its rank and size from
+    the environment and rendezvouses through ``env://``, or through
+    ``init_method`` (e.g. ``file://`` a store path) where given. Otherwise
+    it rendezvouses through ``init_method`` or ``tcp://coordinator_address``
+    with ``num_processes`` ranks, this one ``process_id``. With no
+    arguments and no launcher it forms a group of one (on a free localhost
+    port without ``init_method``): the sharded forward always needs a
+    group. An existing group is kept."""
     device = resolve_device(device)
     if dist.is_initialized():
         return dist.get_world_size()
@@ -48,17 +55,19 @@ def init_multihost(coordinator_address: Optional[str] = None,
         torch.cuda.set_device(device)
     launched = "RANK" in os.environ and "WORLD_SIZE" in os.environ
     if coordinator_address is None and num_processes is None and launched:
-        dist.init_process_group(backend, init_method="env://")
-        return dist.get_world_size()
+        num_processes = int(os.environ["WORLD_SIZE"])
+        process_id = int(os.environ["RANK"])
+        init_method = init_method or "env://"
     world = 1 if num_processes is None else int(num_processes)
     rank = 0 if process_id is None else int(process_id)
-    if coordinator_address is None:
-        if world > 1:
-            raise ValueError("init_multihost: more than one process needs a "
-                             "coordinator_address (host:port)")
-        coordinator_address = f"localhost:{_free_port()}"
-    dist.init_process_group(backend,
-                            init_method=f"tcp://{coordinator_address}",
+    if init_method is None:
+        if coordinator_address is None:
+            if world > 1:
+                raise ValueError("init_multihost: more than one process "
+                                 "needs a coordinator_address (host:port)")
+            coordinator_address = f"localhost:{_free_port()}"
+        init_method = f"tcp://{coordinator_address}"
+    dist.init_process_group(backend, init_method=init_method,
                             world_size=world, rank=rank)
     return world
 

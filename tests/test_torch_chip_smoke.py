@@ -6,6 +6,7 @@ MLP kernel rounds and fail one that drops a hidden chunk or leaves a row
 tile unwritten; its pace window and its staged-against-overlapped check
 must pass the streams' own outputs and fail planted faults."""
 import functools
+import os
 
 import numpy as np
 import pytest
@@ -508,3 +509,59 @@ def test_phase_dras_rehearsal(fault, monkeypatch):
             dras["launches_textural"], dras["launches_train"]) == \
         (33, 33, 11, 40)
     assert {"subset", "bag"} <= set(dras)
+
+
+def test_phase_dryrun_rehearsal(explain_slide, monkeypatch):
+    """chip_smoke phase 15 at narrow widths on the CPU (two 512^2 regions,
+    gloo), with read_counts counting the block and pool op calls: entry()
+    against its plain copy, dryrun_multichip(1), the data-parallel encode
+    bit-equal to forward; it then stops at its launch check on the one
+    kernel the CPU path never calls, the shard-local pool (the dry run
+    takes it on a card only)."""
+    from hipt_abmil_atec23_tpu_torch.models import vit
+    from hipt_abmil_atec23_tpu_torch.ops import gated_attention_pool as gap
+    counts = {}
+
+    def counting(name, fn):
+        def wrapped(*a, **k):
+            counts[name] = counts.get(name, 0) + 1
+            return fn(*a, **k)
+        return wrapped
+
+    monkeypatch.setattr(vit, "fused_vit_block",
+                        counting("fused_block", vit.fused_vit_block))
+    monkeypatch.setattr(gap, "gated_attention_pool",
+                        counting("gated_pool", gap.gated_attention_pool))
+    monkeypatch.setattr(chip_smoke, "zero_counts", counts.clear)
+    monkeypatch.setattr(chip_smoke, "read_counts", lambda: {
+        name: counts.get(name, 0) for name in chip_smoke.COUNTERS})
+    monkeypatch.setattr(chip_smoke, "gpu_timer", lambda fn, iters: 1.0)
+    rgb, _, _, widths = explain_slide
+    regions = torch.from_numpy(np.stack([rgb[:512, :512], rgb[512:, 512:]]))
+    with pytest.raises(SystemExit, match=r"never launched "
+                       r"\['gated_pool_partial'\]"):
+        chip_smoke.phase_dryrun(torch.device("cpu"), "cpu", regions,
+                                widths=widths)
+    # the narrow encoder's 2 + 2 blocks twice, the dry run's apply_pooled
+    assert counts == {"fused_block": 8, "gated_pool": 1}
+
+
+@pytest.mark.parametrize("cards", [1, 2])
+def test_local_rank_check(monkeypatch, cards):
+    """phase 15's C.4 check passes on the port on any card count, and
+    stops a resolve_device that ignores LOCAL_RANK."""
+    from hipt_abmil_atec23_tpu_torch import device
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.delenv("LOCAL_RANK", raising=False)
+    chip_smoke.local_rank_check()
+    assert "LOCAL_RANK" not in os.environ   # the caller's env restored
+
+    def current_card(d):   # the resolution before the repair
+        d = torch.device(d)
+        return torch.device("cuda", 0) if d.type == "cuda" else d
+
+    monkeypatch.setattr(device, "resolve_device", current_card)
+    with pytest.raises(SystemExit, match="C.4"):
+        chip_smoke.local_rank_check()
