@@ -29,6 +29,7 @@ headline AUC.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import csv
 import json
 import os
@@ -45,6 +46,21 @@ ENCODERS = ["resnet18", "resnet50", "levit_128s", "levit_256", "HIPT_4K",
 def _add_device(p):
     p.add_argument("--device", default="cuda",
                    help="torch device to run on: cuda (default) or cpu")
+
+
+def _add_trace(p):
+    p.add_argument("--trace", default=None, metavar="DIR",
+                   help="write a torch.profiler trace of the run "
+                        "(trace.json) and the program's spans "
+                        "(spans.jsonl) to DIR")
+
+
+def _traced(a):
+    """The run's --trace context: utils/logging.trace, or nothing."""
+    if not a.trace:
+        return contextlib.nullcontext()
+    from hipt_abmil_atec23_tpu_torch.utils.logging import trace
+    return trace(a.trace)
 
 
 def _add_tile(sub):
@@ -126,6 +142,7 @@ def _add_encode(sub):
     p.add_argument("--stage_h2d", action="store_true",
                    help="copy every batch to the device before the first "
                         "compute dispatch (encode_stream stage=True)")
+    _add_trace(p)
     _add_device(p)
 
 
@@ -165,11 +182,12 @@ def _cmd_encode(a):
         jobs.append((os.path.join(a.data_slide_dir, sid + a.slide_ext),
                      h5, sid))
     t0 = time.perf_counter()
-    done, failed = encode_many(jobs, encoder, store,
-                               skip_existing=not a.no_skip,
-                               transform=transform,
-                               target_patch_size=a.target_patch_size,
-                               stage=a.stage_h2d)
+    with _traced(a):
+        done, failed = encode_many(jobs, encoder, store,
+                                   skip_existing=not a.no_skip,
+                                   transform=transform,
+                                   target_patch_size=a.target_patch_size,
+                                   stage=a.stage_h2d)
     dt = time.perf_counter() - t0
     print(f"[encode] {len(done)} slides in {dt:.1f}s "
           f"({len(done) / max(dt, 1e-9) * 3600:.1f} slides/hour)")
@@ -285,8 +303,7 @@ def _add_train(sub):
                    help="exact full-bag training: the instance axis shards "
                         "over the process group (no subsampling; clam_sb)")
     p.add_argument("--profile", action="store_true")
-    p.add_argument("--trace", default=None, metavar="DIR",
-                   help="write a torch.profiler trace of the run to DIR")
+    _add_trace(p)
     p.add_argument("--log_data", action="store_true")
     p.add_argument("--debug_loader", action="store_true",
                    help="iterate the data pipeline once without training "
@@ -411,7 +428,6 @@ def _train_full_bags(cfg, manifest, store, device) -> None:
 
 
 def _cmd_train(a):
-    import contextlib
     from hipt_abmil_atec23_tpu_torch.data.bags import FeatureBagStore
     from hipt_abmil_atec23_tpu_torch.data.manifest import SlideManifest
     from hipt_abmil_atec23_tpu_torch.device import resolve_device
@@ -444,11 +460,7 @@ def _cmd_train(a):
         summary, _ = run_cv(cfg, manifest, store, device=device)
         print(summary)
 
-    ctx = contextlib.nullcontext()
-    if a.trace:
-        from hipt_abmil_atec23_tpu_torch.utils.logging import trace
-        ctx = trace(a.trace)
-    with ctx:
+    with _traced(a):
         if a.profile:
             # reference: --profile wraps main in cProfile (main.py:514-521)
             import cProfile
@@ -1027,6 +1039,7 @@ def _add_serve(sub):
     p.add_argument("--min_stable_s", type=float, default=10.0,
                    help="mtime age a slide file must reach before it is "
                         "served (guards against scoring mid-upload files)")
+    _add_trace(p)
     _add_device(p)
 
 
@@ -1054,13 +1067,16 @@ def _cmd_serve(a):
         save_features=a.save_features, top_k=a.top_k,
         min_stable_s=a.min_stable_s)
     write_config(cfg)
+    with _traced(a):
+        if a.once:
+            recs = serve_once(cfg, ServeState(device=a.device))
+        else:
+            n = serve_forever(cfg, device=a.device, max_drains=a.max_drains)
     if a.once:
-        recs = serve_once(cfg, ServeState(device=a.device))
         n_done = sum(1 for r in recs if r.get("status") == "done")
         print(f"[serve] drained {len(recs)} slides "
               f"({n_done} scored, {len(recs) - n_done} failed_seg)")
     else:
-        n = serve_forever(cfg, device=a.device, max_drains=a.max_drains)
         print(f"[serve] served {n} slides")
 
 

@@ -55,6 +55,7 @@ from hipt_abmil_atec23_tpu_torch.models.resnet import imagenet_normalize
 from hipt_abmil_atec23_tpu_torch.ops.jpegdct import _G, dct_regions_to_planes
 from hipt_abmil_atec23_tpu_torch.ops.yuv import ycc_to_input
 from hipt_abmil_atec23_tpu_torch.utils.config import EncoderConfig
+from hipt_abmil_atec23_tpu_torch.utils.logging import span_end, span_start
 
 
 class DctBatch(NamedTuple):
@@ -580,8 +581,17 @@ def encode_stream(jobs, encoder: Encoder, *, patch_level: int = 0,
     each change), ``regions_{dct,yuv,rgb}``, ``h2d_bytes``, ``dct_caps``,
     the live ``rung_calibration`` tables, every ``wire_mbps_samples``,
     ``wire_mbps_final`` and, staged, ``stage_flushes``.
+
+    While a torch.profiler runs, each batch records spans
+    (utils/logging.py), each with the batch's job index, batch index, real
+    items and their pixels: on the worker ``encode.read`` (the decode) and,
+    on a card, ``encode.pin``; on the main loop, one after another,
+    ``encode.wait`` (for the worker's batch), ``encode.h2d``,
+    ``encode.dispatch`` (the encoder and its D2H) and ``encode.collect``
+    (the features into the slide's array).
     """
     size = region_size or encoder.input_size
+    item_px = size * size
     if target_patch_size == size:
         target_patch_size = 0  # no resize, so the plane rungs stay open
     pixels_only = transform is not None or bool(target_patch_size)
@@ -646,8 +656,8 @@ def encode_stream(jobs, encoder: Encoder, *, patch_level: int = 0,
     def _ewma(table, rung, sample_ms_mpx, w=0.3):
         table[rung] = (1.0 - w) * table[rung] + w * sample_ms_mpx
 
-    def read_batch(item):
-        _, slide, chunk, use_yuv, dct_ctx = item
+    def read_batch(ci):
+        ji, slide, chunk, use_yuv, dct_ctx = items[ci]
         if adaptive_rungs and link["mbps"] and (use_yuv or dct_ctx):
             feasible = ["rgb"] + (["yuv"] if use_yuv else []) \
                 + (["dct"] if dct_ctx is not None else [])
@@ -668,11 +678,13 @@ def encode_stream(jobs, encoder: Encoder, *, patch_level: int = 0,
                     [link["batch"], rung, round(link["mbps"], 1)])
             link["rung"] = rung
         link["batch"] += 1
+        t = span_start()
         td0 = time.perf_counter()
         buf = _decode_batch(slide, chunk, patch_level=patch_level, size=size,
                             bs=bs, n_io_threads=n_io_threads, use_yuv=use_yuv,
                             dct_ctx=dct_ctx, transform=transform,
                             target_patch_size=target_patch_size)
+        span_end(t, "encode.read", ji, ci, len(chunk), item_px)
         # host-decode calibration, billed to the rung the batch actually
         # rode (a cap-overflow fallback bills the pixels it shipped)
         kind = _kind(buf)
@@ -689,7 +701,9 @@ def encode_stream(jobs, encoder: Encoder, *, patch_level: int = 0,
                 stats["dct_caps"] = dct_caps
         host = tuple(torch.from_numpy(a) for a in leaves)
         if cuda:
-            host = tuple(t.pin_memory() for t in host)
+            t = span_start()
+            host = tuple(a.pin_memory() for a in host)
+            span_end(t, "encode.pin", ji, ci, len(chunk), item_px)
         return kind, host
 
     copy_stream = torch.cuda.Stream(dev) if cuda else None
@@ -771,11 +785,13 @@ def encode_stream(jobs, encoder: Encoder, *, patch_level: int = 0,
         remaining[ji] -= 1
 
     def collect(pend):
-        ji, k, kind, host, done, dev_t, wire = pend
+        ci, ji, k, kind, host, done, dev_t, wire = pend
+        t = span_start()
         if done is not None:
             done.synchronize()
         store(ji, k, host.float().numpy())
         calibrate(kind, dev_t, wire)
+        span_end(t, "encode.collect", ji, ci, k, item_px)
 
     def flush(staged):
         """Dispatch every staged batch's compute back to back, then one
@@ -784,16 +800,21 @@ def encode_stream(jobs, encoder: Encoder, *, patch_level: int = 0,
         until that compute has run)."""
         outs = []
         for rec in staged:
-            outs.append(run(rec[2], rec[3]))
-            rec[3] = None
+            t = span_start()
+            outs.append(run(rec[3], rec[4]))
+            rec[4] = None
+            span_end(t, "encode.dispatch", rec[1], rec[0], rec[2], item_px)
+        # the flush's D2H and wait go to its first batch's collect
+        t = span_start()
         host, done = to_host(torch.cat([o for o, _ in outs]))
         if done is not None:
             done.synchronize()
         flat = host.float().numpy()
-        for i, ((ji, k, kind, _, wire), (_, dev_t)) in enumerate(
+        for i, ((ci, ji, k, kind, _, wire), (_, dev_t)) in enumerate(
                 zip(staged, outs)):
             store(ji, k, flat[i * bs:(i + 1) * bs])
             calibrate(kind, dev_t, wire)
+            t = span_end(t, "encode.collect", ji, ci, k, item_px)
         staged.clear()
         if stats is not None:
             stats["stage_flushes"] = stats.get("stage_flushes", 0) + 1
@@ -810,23 +831,28 @@ def encode_stream(jobs, encoder: Encoder, *, patch_level: int = 0,
     # ONE decode worker: read_regions parallelises internally; the window
     # is prefetch depth, not decode concurrency
     ex = ThreadPoolExecutor(max_workers=1)
-    futures = [ex.submit(read_batch, it) for it in items[:window]]
+    futures = [ex.submit(read_batch, ci)
+               for ci in range(min(window, len(items)))]
 
     def next_batch(ci):
         kind, host = futures[ci].result()
         futures[ci] = None  # the pinned batch is freed with its last user
         if ci + window < len(items):
-            futures.append(ex.submit(read_batch, items[ci + window]))
+            futures.append(ex.submit(read_batch, ci + window))
         return kind, host
 
     try:
         if stage:
             staged, held = [], 0
             for ci, (ji, _, chunk, _, _) in enumerate(items):
+                k = len(chunk)
+                t = span_start()
                 kind, host = next_batch(ci)
+                t = span_end(t, "encode.wait", ji, ci, k, item_px)
                 bufs, wire = to_device(host)
-                held += sum(t.nbytes for t in host)
-                staged.append([ji, len(chunk), kind, bufs, wire])
+                span_end(t, "encode.h2d", ji, ci, k, item_px)
+                held += sum(a.nbytes for a in host)
+                staged.append([ci, ji, k, kind, bufs, wire])
                 del host, bufs
                 if held >= stage_budget_bytes:
                     flush(staged)
@@ -838,15 +864,22 @@ def encode_stream(jobs, encoder: Encoder, *, patch_level: int = 0,
         else:
             pending = None
             for ci, (ji, _, chunk, _, _) in enumerate(items):
+                k = len(chunk)
+                t = span_start()
                 kind, host = next_batch(ci)
+                t = span_end(t, "encode.wait", ji, ci, k, item_px)
                 bufs, wire = to_device(host)
                 del host
+                t = span_end(t, "encode.h2d", ji, ci, k, item_px)
                 out, dev_t = run(kind, bufs)
                 del bufs
+                back = to_host(out)
+                del out
+                span_end(t, "encode.dispatch", ji, ci, k, item_px)
                 if pending is not None:
                     collect(pending)
                     yield from drain()
-                pending = (ji, len(chunk), kind, *to_host(out), dev_t, wire)
+                pending = (ci, ji, k, kind, *back, dev_t, wire)
             collect(pending)
             yield from drain()
         if stats is not None:

@@ -29,6 +29,7 @@ import torch
 
 from hipt_abmil_atec23_tpu_torch.utils.config import (
     EncoderConfig, ModelConfig, SegConfig, TileConfig)
+from hipt_abmil_atec23_tpu_torch.utils.logging import span_end, span_start
 
 _DONE_STATUSES = ("done", "failed_seg")
 SLIDE_EXTS = (".tif", ".tiff", ".svs", ".png", ".jpg", ".jpeg")
@@ -164,16 +165,24 @@ def _ensure_state(cfg: ServeConfig, state: ServeState) -> None:
 
 def _mil_bucketed(state: ServeState, feats: np.ndarray):
     """MIL forward through apply_pooled on a bag padded to a power-of-2
-    bucket >= 512 (the JAX package's static-shape buckets)."""
+    bucket >= 512 (the JAX package's static-shape buckets). While a
+    torch.profiler runs it records the spans ``serve.pad``, ``serve.h2d``
+    and ``serve.pool`` (utils/logging.py), each with the bag's rows."""
     from hipt_abmil_atec23_tpu_torch.ops.gated_attention_pool import (
         apply_pooled)
     from hipt_abmil_atec23_tpu_torch.ops.masking import pad_bag
-    n_pad = max(512, 1 << (max(len(feats), 1) - 1).bit_length())
+    n = len(feats)
+    n_pad = max(512, 1 << (max(n, 1) - 1).bit_length())
+    t = span_start()
     bag, mask = pad_bag(feats, n_pad)
+    t = span_end(t, "serve.pad", rows=n)
     with torch.inference_mode():
-        return apply_pooled(state.model,
-                            torch.from_numpy(bag).to(state.device),
-                            torch.from_numpy(mask).to(state.device))
+        bag = torch.from_numpy(bag).to(state.device)
+        mask = torch.from_numpy(mask).to(state.device)
+        t = span_end(t, "serve.h2d", rows=n)
+        out = apply_pooled(state.model, bag, mask)
+    span_end(t, "serve.pool", rows=n)
+    return out
 
 
 def serve_once(cfg: ServeConfig, state: ServeState, *,

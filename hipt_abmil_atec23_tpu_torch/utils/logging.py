@@ -8,17 +8,21 @@ core_utils.py:126-128, 365-371) and profiles with cProfile (main.py:
 - ``MetricsLogger`` writes JSONL (always greppable) and mirrors to
   tensorboardX where it imports;
 - ``trace()`` wraps a block in ``torch.profiler`` (CPU and, on a card,
-  CUDA activity) and writes a Chrome trace;
-- ``StageTimer`` keeps per-stage wall times and items-per-hour counts
-  (create_patches_fp.py:211-227, extract_features_fp.py:247).
+  CUDA activity) and writes a Chrome trace and the program's spans;
+- ``span_start()`` / ``span_end()`` record a span at a layer boundary of
+  the slide stream and of scoring (engine/encode.py, engine/serve.py),
+  only while a ``torch.profiler`` runs.
 """
 from __future__ import annotations
 
 import contextlib
 import json
 import os
+import threading
 import time
-from typing import Dict
+from typing import Dict, List, NamedTuple
+
+from torch.autograd import profiler as _profiler
 
 
 class MetricsLogger:
@@ -59,48 +63,76 @@ class MetricsLogger:
             self._tb.close()
 
 
+class Span(NamedTuple):
+    """One stretch of host work at a layer boundary. ``start_ns`` and
+    ``end_ns`` are on ``time.time_ns()``, the clock torch.profiler stamps
+    device events with, so a span can be laid against the device's idle
+    gaps. ``slide`` (the job index in a stream) and ``batch`` (the
+    stream's batch index, shared by a batch's worker and main-loop spans)
+    tie it to its cause, -1 where there is none; ``rows`` are the items or
+    bag rows it handled and ``px`` their pixels (0 where none apply)."""
+    name: str
+    start_ns: int
+    end_ns: int
+    thread: str
+    slide: int
+    batch: int
+    rows: int
+    px: int
+
+
+# The spans of the running profiler. The profiler is one per process, and
+# so is this list: the stream's worker thread appends to it too (a list's
+# append needs no lock).
+_SPANS: List[Span] = []
+
+
+def span_start() -> int:
+    """The start of a span: the clock while a torch.profiler runs, else 0
+    (no clock is read)."""
+    return time.time_ns() if _profiler._is_profiler_enabled else 0
+
+
+def span_end(t0: int, name: str, slide: int = -1, batch: int = -1,
+             rows: int = 0, item_px: int = 0) -> int:
+    """Record the span ``name`` begun at ``t0`` (``span_start()``'s value;
+    0 records nothing), ``px = rows * item_px``. Returns the end, the start
+    of a span that follows on at once, or 0 once the profiler has
+    stopped."""
+    if not t0:
+        return 0
+    t1 = time.time_ns()
+    _SPANS.append(Span(name, t0, t1, threading.current_thread().name, slide,
+                       batch, rows, rows * item_px))
+    return t1 if _profiler._is_profiler_enabled else 0
+
+
+def recorded_spans() -> List[Span]:
+    """Every span recorded since the last ``clear_spans()``, in the order
+    they ended."""
+    return _SPANS
+
+
+def clear_spans() -> None:
+    _SPANS.clear()
+
+
 @contextlib.contextmanager
 def trace(log_dir: str):
     """torch.profiler around a block; writes ``log_dir/trace.json`` (a
     Chrome trace of the host and, where a card is visible, the device
-    timeline)."""
+    timeline) and ``log_dir/spans.jsonl`` (the spans the block recorded,
+    on the same clock)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
+    clear_spans()
     with profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
-
-
-class StageTimer:
-    """Named wall-clock accumulators with an items-per-hour readout."""
-
-    def __init__(self):
-        self.totals: Dict[str, float] = {}
-        self.counts: Dict[str, int] = {}
-
-    @contextlib.contextmanager
-    def time(self, stage: str, items: int = 1):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.totals[stage] = self.totals.get(stage, 0.0) + \
-                (time.perf_counter() - t0)
-            self.counts[stage] = self.counts.get(stage, 0) + items
-
-    def per_item(self, stage: str) -> float:
-        return self.totals.get(stage, 0.0) / max(1, self.counts.get(stage, 0))
-
-    def items_per_hour(self, stage: str) -> float:
-        t = self.totals.get(stage, 0.0)
-        return self.counts.get(stage, 0) / t * 3600.0 if t > 0 else 0.0
-
-    def summary(self) -> Dict[str, Dict[str, float]]:
-        return {s: {"total_s": self.totals[s], "count": self.counts[s],
-                    "per_item_s": self.per_item(s),
-                    "per_hour": self.items_per_hour(s)}
-                for s in self.totals}
+    with open(os.path.join(log_dir, "spans.jsonl"), "w") as f:
+        for s in _SPANS:
+            f.write(json.dumps(s._asdict()) + "\n")

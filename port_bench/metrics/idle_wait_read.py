@@ -1,0 +1,20 @@
+"""The share of the traced window in which the card is idle while the
+stream's main loop waits for its decode worker: the device's idle gaps
+(every kernel, memcpy and memset the profiler saw) under the program's
+``encode.wait`` spans (engine/encode.encode_stream, utils/logging.py), on
+the clock both share. None where the program records no such span."""
+NAMES = ("encode.wait",)
+
+
+def read(ctx):
+    try:
+        from hipt_abmil_atec23_tpu_torch.utils.logging import recorded_spans
+    except ImportError:
+        return None
+    tr = ctx.trace
+    spans = [("open", s.start_ns, s.end_ns) for s in recorded_spans()
+             if s.name in NAMES and s.end_ns > tr.t0 and s.start_ns < tr.t1]
+    if not spans:
+        return None
+    idle = dict(tr.idle_by_host(spans)).get("open", 0.0)
+    return 100.0 * idle / tr.window_s

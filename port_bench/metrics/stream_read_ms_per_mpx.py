@@ -1,0 +1,21 @@
+"""The port's own read time per megapixel read, over the traced window:
+the program's ``encode.read`` spans (engine/encode.encode_stream's decode
+on its worker, utils/logging.py), summed, over the real pixels of those
+batches. The in-program counterpart of ``read_ms_per_mpx``, which times
+the store's gather from the benchmark's side. None where the program
+records no such span (a program without span_start / span_end)."""
+NAME = "encode.read"
+
+
+def read(ctx):
+    try:
+        from hipt_abmil_atec23_tpu_torch.utils.logging import recorded_spans
+    except ImportError:
+        return None
+    t0, t1 = ctx.trace.t0, ctx.trace.t1
+    spans = [s for s in recorded_spans()
+             if s.name == NAME and s.end_ns > t0 and s.start_ns < t1]
+    px = sum(s.px for s in spans)
+    if not px:
+        return None
+    return (sum(s.end_ns - s.start_ns for s in spans) / 1e6) / (px / 1e6)

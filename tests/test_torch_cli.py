@@ -262,6 +262,41 @@ def test_cli_runs_the_other_encoders(argv, dim, tiny, tmp_path):
         assert len(got) == rec["n_regions"]
 
 
+def test_cli_serve_trace(tiny, tmp_path):
+    """`serve --once --trace DIR` writes the profiler's trace.json and the
+    program's spans.jsonl: the slide's stream spans, one per batch, and
+    one serve.pad / serve.h2d / serve.pool for its bag."""
+    _, src = tiny
+    inbox = tmp_path / "inbox"
+    inbox.mkdir()
+    os.link(src / "t.tif", inbox / "t.tif")
+    ckpt = str(tmp_path / "head.pt")
+    torch.save(build_mil_model("clam_sb", size_arg="small_resnet18")
+               .state_dict(), ckpt)
+    out, traced = tmp_path / "o", tmp_path / "trace"
+    assert cli.main([
+        "serve", "--encoder", "resnet18", "--float32", "--slide_dir",
+        str(inbox), "--out_dir", str(out), "--ckpt", ckpt, "--model_size",
+        "small_resnet18", "--patch_size", "256", "--use_otsu", "--a_t", "1",
+        "--batch_size", "4", "--once", "--min_stable_s", "0", "--trace",
+        str(traced), "--device", "cpu"]) == 0
+    rec = json.load(open(out / "results" / "t.json"))
+    assert rec["status"] == "done"
+    assert (traced / "trace.json").exists()
+    with open(traced / "spans.jsonl") as f:
+        spans = [json.loads(line) for line in f]
+    names = [s["name"] for s in spans]
+    n_batches = -(-rec["n_regions"] // 4)
+    for name in ("encode.read", "encode.wait", "encode.h2d",
+                 "encode.dispatch", "encode.collect"):
+        assert names.count(name) == n_batches, name
+    assert sum(s["rows"] for s in spans if s["name"] == "encode.read") \
+        == rec["n_regions"]
+    for name in ("serve.pad", "serve.h2d", "serve.pool"):
+        assert [s["rows"] for s in spans if s["name"] == name] \
+            == [rec["n_regions"]], name
+
+
 def test_train_extract_features_needs_the_slide_dirs(tmp_path):
     """`train --extract_features` (online encoding, tests/
     test_torch_online.py) stops before any work without --data_h5_dir and

@@ -144,7 +144,12 @@ def test_dropout_is_seeded_and_keeps_its_rate():
     with torch.no_grad():
         assert torch.equal(run(1), run(1))
         assert not torch.equal(run(1), run(2))
-        h = torch.relu(port.attention_net[0](bag))
+        # the rate over ~32k projected instances (the head's init comes
+        # from the global generator, so a 64-row bag's ~500 left the
+        # estimate at the tolerance's edge for some inits)
+        big = torch.randn(4096, 192,
+                          generator=torch.Generator().manual_seed(4))
+        h = torch.relu(port.attention_net[0](big))
         d = port.attention_net[2](h, True,
                                   torch.Generator().manual_seed(3))
         kept = (d != 0) & (h != 0)
