@@ -5,7 +5,7 @@ serving path on an NVIDIA H100 through its hand-written CUDA kernels.
 
 Phases (any failure exits non-zero, and no result line is printed):
   1. device: require CUDA; print the card's name and power limit.
-  2. kernels: build the seven CUDA sources from the checkout (one nvcc per
+  2. kernels: build the eight CUDA sources from the checkout (one nvcc per
      source, side by side, sm_90a) and hold each of the nine kernels (the
      eight TPU kernels' ports and the colour kernel)
      against its plain PyTorch version on the card, at the main path's
@@ -127,18 +127,26 @@ Phases (any failure exits non-zero, and no result line is printed):
      f32, bit-equal to its plain version), B.3 on a batch of 256 patches
      of 256^2 (aligned and off the MCU lattice) and B.2 at serve's
      [1024, 1024] bucket with a CLAM_SB small head, each timed beside its
-     plain version and bound; then full-width ResNet50-trunc (bf16, seeded
-     weights, batch 256) through build_encoder -> encode_stream on phase
-     3's two plane slides, one phase 4 DCT slide and the RGB rung, 1024
-     patches of 256^2 per slide, counts zeroed before each rung (ycc_input
-     on the plane and DCT rungs, dct_decode on the DCT rung, none on RGB,
-     fused_block never), features against the plain pass (cosine >= 0.999,
-     rel L2 <= 2e-2), patches per second per rung; CLAM_SB small over each
+     plain version and bound; the ResNets' convolution epilogue
+     (conv_epilogue.cu, no TPU kernel) in bf16 NHWC at the stem's
+     [256, 128, 128, 64] without a residual, layer1's [256, 64, 64, 256]
+     with one and layer2.0's [256, 32, 32, 512] with a downsample and its
+     bias, each bit-equal to its plain version and timed beside its byte
+     bound (layer1's also beside its plain version and the eager passes
+     it replaced);
+     then full-width ResNet50-trunc (bf16, seeded weights, batch 256)
+     through build_encoder -> encode_stream on phase 3's two plane slides,
+     one phase 4 DCT slide and the RGB rung, 1024 patches of 256^2 per
+     slide, counts zeroed before each rung (ycc_input on the plane and DCT
+     rungs, dct_decode on the DCT rung, none on RGB, conv_epilogue on
+     every rung, fused_block never), features against the plain pass
+     (cosine >= 0.999, rel L2 <= 2e-2), patches per second per rung; CLAM_SB small over each
      [1024, 1024] bag through serve's _mil_bucketed (gated_pool launched,
      probabilities within 1e-4 of the head's forward); 8 patches against
      the port on the CPU in f32 (TF32 off on the card) and from bf16;
      ResNet-18, LeViT-256 and LeViT-128S on the RGB rung (no ycc_input or
-     dct_decode launch), patches per second, each against the CPU port;
+     dct_decode launch; conv_epilogue on ResNet-18 only), patches per
+     second, each against the CPU port;
      train_fold for 2 epochs over OnlineEncodingBagDatasets of in-memory
      slides (75 patches drawn per slide, ResNet50-trunc in the loop), ms
      per step; OnlineFeatureGather.take twice (the second encodes
@@ -242,6 +250,8 @@ from hipt_abmil_atec23_tpu_torch.ops import flash_attention as fa
 from hipt_abmil_atec23_tpu_torch.ops import fused_mlp as fm
 from hipt_abmil_atec23_tpu_torch.ops import gated_attention_pool as gap
 from hipt_abmil_atec23_tpu_torch.ops import jpegdct, yuv
+from hipt_abmil_atec23_tpu_torch.ops.conv_epilogue import (
+    conv_epilogue, conv_epilogue_reference)
 from hipt_abmil_atec23_tpu_torch.ops.fused_block import (
     fused_vit_block, fused_vit_block_reference)
 from hipt_abmil_atec23_tpu_torch.ops.fused_network import (
@@ -260,7 +270,7 @@ POOL_TOL = 1e-4            # f32 logits and scores
 REGION = 4096
 SLIDE = 8192
 SOURCES = ("fused_block", "gated_pool", "dct_decode", "ycc_input",
-           "fused_mlp", "flash_attention", "fused_network")
+           "fused_mlp", "flash_attention", "fused_network", "conv_epilogue")
 PLANE_SHARE = 1e-3         # decoded samples allowed 1 LSB off the plain
 # f32 operations per output pixel of the colour kernel: its share of the
 # vertical chroma filter (3 per plane per chroma sample, 2 pixels each),
@@ -1285,7 +1295,8 @@ def phase_kernels(dev, dct_slide, planes, regions) -> dict:
     log(f"kernels built in {time.perf_counter() - t0:.1f} s "
         f"({build.BUILD_DIR})")
     for name in ("fused_block", "fused_network", "flash_attention",
-                 "fused_mlp", "gated_pool", "dct_decode", "ycc_input"):
+                 "fused_mlp", "gated_pool", "dct_decode", "ycc_input",
+                 "conv_epilogue"):
         build_report(build, name)
     g = torch.Generator().manual_seed(0)
     records = {"fused_block": _kernel_block(dev, g),
@@ -1377,7 +1388,8 @@ COUNTERS = {"fused_block": fused_vit_block,
             "ycc_input": yuv.ycc_to_input,
             "fused_mlp": fm.fused_mlp,
             "fused_attention": fa.fused_attention,
-            "flash_attention": fa.flash_attention}
+            "flash_attention": fa.flash_attention,
+            "conv_epilogue": conv_epilogue}
 
 
 def zero_counts():
@@ -2869,6 +2881,72 @@ def _colour_imagenet(dev, planes) -> dict:
             "max_abs_err": worst}
 
 
+# The epilogue's three variants on the ResNet50-trunc path, [H, W, C] of a
+# batch of 256^2 patches: the stem (no residual; conv1 and conv2 of every
+# block too), layer1's conv3 with its identity residual, layer2.0's conv3
+# with its downsample's bias-free output and that convolution's bias
+EPILOGUE_CASES = (("stem", (128, 128, 64), "none"),
+                  ("layer1 conv3", (64, 64, 256), "r"),
+                  ("layer2.0 conv3", (32, 32, 512), "r+bias_r"))
+
+
+def _epilogue_resnet(dev) -> dict:
+    """The convolution epilogue in bf16 at each of EPILOGUE_CASES on a
+    batch of RESNET_BATCH, against its plain version on the card (bit for
+    bit), timed by CUDA events over 20 launches (the wrapper's host work is
+    far under a launch's ~0.5 ms; torch.profiler's per-call sum read 0.22
+    ms at layer1, under the byte bound) beside its byte bound; at layer1
+    also its plain version and the eager passes it replaced (the bias
+    add_, the residual add, the ReLU)."""
+    g = torch.Generator(dev).manual_seed(21)
+    res = {}
+    for name, (h, w, c), residual in EPILOGUE_CASES:
+        shape = [RESNET_BATCH, h, w, c]
+        a, r = (torch.randn(*shape, generator=g, device=dev).bfloat16()
+                .permute(0, 3, 1, 2) for _ in range(2))
+        r = None if residual == "none" else r
+        bias, bias_r = (torch.randn(c, generator=g, device=dev).bfloat16()
+                        for _ in range(2))
+        bias_r = bias_r if residual == "r+bias_r" else None
+        with torch.inference_mode():
+            want = conv_epilogue_reference(a, bias, r, bias_r)
+            got = conv_epilogue(a.clone(), bias, r, bias_r)
+            if not torch.equal(got, want):
+                raise SystemExit(f"conv_epilogue {name}: not bit-equal to "
+                                 "its plain version")
+            del got, want
+            # in place on a: repeated calls add the biases and r again, far
+            # from bf16's range in the few dozen calls timed
+            ms = gpu_timer(lambda: conv_epilogue(a, bias, r, bias_r),
+                           iters=20)
+            row = {"shape": f"{shape} NHWC bf16, residual {residual}",
+                   "ms": ms}
+            if residual == "r":
+                eager_a = a.clone()
+                row["plain_ms"] = gpu_timer(
+                    lambda: conv_epilogue_reference(a, bias, r), iters=3)
+                row["eager_ms"] = gpu_timer(lambda: F.relu(
+                    eager_a.add_(bias.view(1, -1, 1, 1)) + r), iters=3)
+                del eager_a
+        # a read and written, r read; per element an add per term and the
+        # clamp
+        terms = 1 + (r is not None) + (bias_r is not None)
+        nbytes = (2 + (r is not None)) * a.numel() * a.element_size() \
+            + (1 + (bias_r is not None)) * c * 2
+        row["bound_ms"], row["bound_by"] = bound(
+            nbytes, (terms + 1) * a.numel(), F32_FLOP_S)
+        extra = "".join(f", {k[:-3]} {row[k]:.4f} ms"
+                        for k in ("plain_ms", "eager_ms") if k in row)
+        log(f"conv_epilogue {name} {shape} NHWC bf16, residual {residual}: "
+            f"kernel {ms:.4f} ms (CUDA events), bound {row['bound_ms']:.4f} "
+            f"ms ({row['bound_by']}: {nbytes / 1e6:.1f} MB at "
+            f"{HBM_BYTES_S / 1e12:g} TB/s; the kernel at "
+            f"{100 * row['bound_ms'] / ms:.1f}% of it){extra}")
+        res[name] = row
+        del a, r
+    return res
+
+
 def _decode_patches(dev, dct_slide) -> dict:
     """B.3 on one batch of 256 patches of 256^2, aligned and off the 16 px
     MCU lattice: coefficient tap bit-equal, planes within 1 LSB; timed on
@@ -3050,6 +3128,7 @@ def phase_resnet(dev, smi, planes, dct_slide, records) -> dict:
 
     # 1. kernels at this slice's shapes, before the counts are zeroed
     colour = _colour_imagenet(dev, planes[0])
+    out["epilogue"] = _epilogue_resnet(dev)
     decode = _decode_patches(dev, dct_slide)
     clam = _reference_clam("small", 5, dev)
     pool = _pool_resnet_bag(dev, clam)
@@ -3071,18 +3150,18 @@ def phase_resnet(dev, smi, planes, dct_slide, records) -> dict:
                   RESNET_PATCH)  # warm-up: cuDNN, the allocator
     plane_feats, plane_l, out["pps_plane"] = _rung_run(
         "plane", jobs, enc, plain_enc,
-        {"ycc_input": True, "dct_decode": False, "fused_block": False},
-        dev, "yuv")
+        {"ycc_input": True, "dct_decode": False, "fused_block": False,
+         "conv_epilogue": True}, dev, "yuv")
     dcoords = grid_coords(dct_slide.level_dimensions[0][0], RESNET_PATCH)
     dct_feats, dct_l, out["pps_dct"] = _rung_run(
         "DCT", [("dct0", dct_slide, dcoords)], enc, plain_enc,
-        {"ycc_input": True, "dct_decode": True, "fused_block": False},
-        dev, "dct")
+        {"ycc_input": True, "dct_decode": True, "fused_block": False,
+         "conv_epilogue": True}, dev, "dct")
     rgb_enc = dataclasses.replace(enc, plane_rung=False, dct_rung=False)
     _, rgb_l, out["pps_rgb"] = _rung_run(
         "RGB", jobs[:1], rgb_enc, None,
-        {"ycc_input": False, "dct_decode": False, "fused_block": False},
-        dev, "rgb")
+        {"ycc_input": False, "dct_decode": False, "fused_block": False,
+         "conv_epilogue": True}, dev, "rgb")
 
     zero_counts()
     worst = 0.0
@@ -3125,7 +3204,8 @@ def phase_resnet(dev, smi, planes, dct_slide, records) -> dict:
                                     RESNET_PATCH)
         _sync(dev)
         lc = read_counts()
-        if lc["ycc_input"] or lc["dct_decode"] or lc["fused_block"]:
+        if lc["ycc_input"] or lc["dct_decode"] or lc["fused_block"] or \
+                bool(lc["conv_epilogue"]) != (name == "resnet18"):
             raise SystemExit(f"{name} on the RGB rung launched {lc}")
         f = feats["m"]
         if f.shape != (len(pcoords), e.feat_dim) or not np.isfinite(f).all():

@@ -601,6 +601,129 @@ def test_colour_kernel_refuses_what_it_does_not_take(cuda_device):
             yuv.ycc_to_input(*args, dtype)
 
 
+
+# The ResNet trunks' epilogue shapes ([N, C, H, W] of a batch of 256
+# 256^2 patches: layer1's conv3 output and layer3's), and two widths off
+# the power-of-two ones, for which the launcher rounds the grid up so that
+# C divides its stride: C 96 at the full grid, C 200 on a ragged 7 x 5
+# plane
+EPILOGUE_SHAPES = [(256, 256, 64, 64), (256, 1024, 16, 16),
+                   (64, 96, 32, 32), (3, 200, 7, 5)]
+
+
+def _nhwc(shape, g, dev, dtype):
+    n, c, h, w = shape
+    return torch.randn(n, h, w, c, generator=g, device=dev).to(
+        dtype).permute(0, 3, 1, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("residual", ["none", "r", "r+bias_r"])
+@pytest.mark.parametrize("shape", EPILOGUE_SHAPES)
+def test_conv_epilogue_kernel_matches_plain(shape, residual, dtype,
+                                            cuda_device):
+    """The epilogue kernel sums in f32 in the plain version's order and
+    rounds once: equal bit for bit, in place in ``a``, one launch."""
+    from hipt_abmil_atec23_tpu_torch.ops import conv_epilogue as ce
+    g = torch.Generator(cuda_device).manual_seed(sum(shape) + len(residual))
+    a = _nhwc(shape, g, cuda_device, dtype)
+    r = _nhwc(shape, g, cuda_device, dtype) if residual != "none" else None
+    b, br = (torch.randn(shape[1], generator=g, device=cuda_device).to(dtype)
+             for _ in range(2))
+    br = br if residual == "r+bias_r" else None
+    want = ce.conv_epilogue_reference(a, b, r, br)
+    before = ce.conv_epilogue.launches
+    with torch.inference_mode():
+        got = ce.conv_epilogue(a, b, r, br)
+    torch.cuda.synchronize()
+    assert ce.conv_epilogue.launches == before + 1
+    assert got.data_ptr() == a.data_ptr() and got.dtype == dtype
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_conv_epilogue_refuses_what_it_does_not_take(cuda_device):
+    from hipt_abmil_atec23_tpu_torch.ops import conv_epilogue as ce
+    g = torch.Generator(cuda_device).manual_seed(0)
+    a = _nhwc((2, 64, 4, 4), g, cuda_device, torch.bfloat16)
+    b = torch.zeros(64, dtype=torch.bfloat16, device=cuda_device)
+    odd = _nhwc((2, 60, 4, 4), g, cuda_device, torch.bfloat16)
+    for args in ((a.contiguous(), b),                    # NCHW layout
+                 (a.half(), b.half()),                   # f16
+                 (a, b.float()),                         # bias dtype
+                 (a, b[:32]),                            # bias width
+                 (odd, b[:60]),                          # C % 8
+                 (a, b, a[:1]),                          # residual shape
+                 (a, b, None, b),                        # bias_r without r
+                 (a, b.cpu()),                           # bias device
+                 (a[:, :, :, 1:], b)):                   # not channels_last
+        with pytest.raises(ValueError):
+            ce.conv_epilogue(*args)
+    with pytest.raises(ValueError, match="requires grad"):
+        ce.conv_epilogue(a.float().requires_grad_(), b.float())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,launches", [("resnet50_trunc", 40),
+                                           ("resnet18", 17)])
+def test_resnet_forward_runs_one_epilogue_per_block_step(arch, launches,
+                                                         cuda_device):
+    """A forward launches the epilogue once per convolution step: 40 for
+    ResNet50-trunc (the stem, then conv1, conv2 and conv3 of 13 blocks;
+    each downsample folded into its block's conv3 epilogue) and 17 for
+    ResNet-18 (the stem, then two per block of 8)."""
+    from hipt_abmil_atec23_tpu_torch.models import resnet
+    from hipt_abmil_atec23_tpu_torch.ops import conv_epilogue as ce
+    model = getattr(resnet, arch)(
+        torch.bfloat16, generator=torch.Generator().manual_seed(0))
+    model = model.to(cuda_device).eval()
+    x = torch.randn(2, 64, 64, 3, device=cuda_device)
+    with torch.inference_mode():
+        model(x)
+        before = ce.conv_epilogue.launches
+        out = model(x)
+    torch.cuda.synchronize()
+    assert ce.conv_epilogue.launches - before == launches
+    assert torch.isfinite(out).all()
+
+
+def _randomize_batchnorm_(model, g):
+    """BatchNorm away from identity, so every folded bias is nonzero."""
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.weight.uniform_(0.5, 1.5, generator=g)
+                m.bias.normal_(0, 0.1, generator=g)
+                m.running_mean.normal_(0, 0.1, generator=g)
+                m.running_var.uniform_(0.5, 1.5, generator=g)
+    return model
+
+
+@pytest.mark.cuda
+def test_bf16_resnet50_on_the_card_matches_f32_on_the_cpu(cuda_device):
+    """A bf16 ResNet50-trunc forward on the card (cuDNN convolutions, one
+    epilogue each) against the f32 forward on the CPU from the same
+    weights, within chip_smoke's BF16_CPU_TOL["resnet50"] (min cosine,
+    max relative L2 per patch)."""
+    import chip_smoke
+    from hipt_abmil_atec23_tpu_torch.models import resnet
+    min_cos, max_rel = chip_smoke.BF16_CPU_TOL["resnet50"]
+    g = torch.Generator().manual_seed(21)
+    cpu = _randomize_batchnorm_(resnet.resnet50_trunc(generator=g), g).eval()
+    card = resnet.resnet50_trunc(torch.bfloat16).to(cuda_device).eval()
+    card.load_state_dict(cpu.state_dict())
+    x = torch.randn(4, 256, 256, 3, generator=g)
+    with torch.inference_mode():
+        want = cpu(x)
+        got = card(x.to(cuda_device)).cpu()
+    cos = torch.nn.functional.cosine_similarity(got, want, dim=1)
+    rel = (got - want).norm(dim=1) / want.norm(dim=1)
+    assert torch.isfinite(got).all()
+    assert cos.min().item() >= min_cos and rel.max().item() <= max_rel, \
+        (cos.min().item(), rel.max().item())
+
 def _within(got, want, atol, rtol):
     got, want = got.float(), want.float()
     return bool(((got - want).abs() <= atol + rtol * want.abs()).all()

@@ -17,6 +17,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from hipt_abmil_atec23_tpu.models import resnet as jresnet
 from hipt_abmil_atec23_tpu.models.convert import (
@@ -26,6 +27,7 @@ from hipt_abmil_atec23_tpu_torch.engine import encode
 from hipt_abmil_atec23_tpu_torch.models import resnet
 from hipt_abmil_atec23_tpu_torch.models.convert import (
     load_torch_state_dict, resnet_state_dict_from_jax)
+from hipt_abmil_atec23_tpu_torch.ops import conv_epilogue as ce
 from hipt_abmil_atec23_tpu_torch.utils.config import EncoderConfig
 
 F32_REL = 1e-5
@@ -209,3 +211,106 @@ def test_seeded_init_is_torchvision_scale():
     assert abs(w.std().item() / (2.0 / (256 * 9)) ** 0.5 - 1) < 0.05
     assert torch.equal(a.bn1.running_var, torch.ones(64))
     assert a.feat_dim == 1024
+
+
+# ---------------------------------------------------------------- epilogue
+def _eager_forward(model, x):
+    """The trunk's forward as eager passes: F.conv2d with the folded bias,
+    F.relu, then relu(out + res) at each block's end (the sequence the
+    epilogue replaces)."""
+    f = model.folded()
+
+    def conv(t, k, stride=1, padding=0):
+        return F.conv2d(t, f[k][0], f[k][1], stride, padding)
+    x = x.to(model.dtype).permute(0, 3, 1, 2)
+    x = F.max_pool2d(F.relu(conv(x, "stem", 2, 3)), 3, 2, 1)
+    for name, blk in model._blocks():
+        if isinstance(blk, resnet.Bottleneck):
+            out = F.relu(conv(x, f"{name}.1"))
+            out = conv(F.relu(conv(out, f"{name}.2", blk.stride, 1)),
+                       f"{name}.3")
+        else:
+            out = conv(F.relu(conv(x, f"{name}.1", blk.stride, 1)),
+                       f"{name}.2", 1, 1)
+        res = x if blk.downsample is None else \
+            conv(x, f"{name}.down", blk.stride)
+        x = F.relu(out + res)
+    return x.mean((2, 3)).float()
+
+
+@pytest.mark.parametrize("c", [64, 1024])
+@pytest.mark.parametrize("residual", ["none", "identity", "downsample"])
+def test_plain_epilogue_matches_the_eager_passes(c, residual):
+    """conv_epilogue on the CPU (its plain version) against the eager
+    sequence it replaces, in f32 on channels_last activations at layer1's
+    and layer3's widths: relu(conv + b), relu(conv + b + x),
+    relu(conv + b + down + b_down), to float rounding."""
+    g = torch.Generator().manual_seed(7)
+    x = torch.randn(2, c, 9, 7, generator=g).contiguous(
+        memory_format=torch.channels_last)
+    w = torch.randn(c, c, 1, 1, generator=g) / c ** 0.5
+    wd = torch.randn(c, c, 1, 1, generator=g) / c ** 0.5
+    b, bd = torch.randn(c, generator=g), torch.randn(c, generator=g)
+    res, res_b = {"none": (None, None), "identity": (x, None),
+                  "downsample": (F.conv2d(x, wd), bd)}[residual]
+    want = F.conv2d(x, w, b)
+    if residual == "identity":
+        want = want + x
+    elif residual == "downsample":
+        want = want + F.conv2d(x, wd, bd)
+    want = F.relu(want)
+    got = ce.conv_epilogue(F.conv2d(x, w), b, res, res_b)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    assert (got >= 0).all() and (got == 0).any()
+
+
+def test_plain_epilogue_rounds_once():
+    """In bf16 the plain version sums in f32 and rounds once: equal to the
+    f32 sum of the same bf16 inputs rounded, not to the eager bf16 passes
+    (which round after each)."""
+    g = torch.Generator().manual_seed(8)
+    a, r = (torch.randn(4, 16, 5, 3, generator=g).bfloat16()
+            for _ in range(2))
+    b, br = (torch.randn(16, generator=g).bfloat16() for _ in range(2))
+    got = ce.conv_epilogue_reference(a, b, r, br)
+    want = torch.relu((a.float() + b.float()[:, None, None])
+                      + (r.float() + br.float()[:, None, None])).bfloat16()
+    assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+    with pytest.raises(ValueError, match="bias_r without r"):
+        ce.conv_epilogue(a, b, None, br)
+
+
+def test_trunk_matches_its_eager_passes(arch):
+    """The port's f32 forward (one epilogue per convolution) against the
+    eager passes it replaced, same folded weights: float rounding."""
+    name, variables = arch
+    model = _port(name, variables)
+    x = torch.from_numpy(np.random.default_rng(9).normal(
+        0, 1, (2, 64, 64, 3)).astype(np.float32))
+    with torch.inference_mode():
+        got, want = model(x), _eager_forward(model, x)
+    assert _rel(got.numpy(), want.numpy()).max() <= 1e-6
+
+
+def test_one_epilogue_per_conv_or_block_end(arch, monkeypatch):
+    """40 epilogues per ResNet50-trunc forward (the stem, then conv1, conv2
+    and conv3 of 13 blocks, each downsample folded into its block's last)
+    and 17 per ResNet-18 (the stem, then two per block of 8); the residual
+    rides the last epilogue of every block."""
+    name, variables = arch
+    calls = []
+
+    def counted(a, bias, r=None, bias_r=None):
+        calls.append((r is not None, bias_r is not None))
+        return ce.conv_epilogue(a, bias, r, bias_r)
+    monkeypatch.setattr(resnet, "conv_epilogue", counted)
+    with torch.inference_mode():
+        _port(name, variables)(torch.zeros(1, 64, 64, 3))
+    n_blocks = sum(ARCHS[name][2])
+    per_block = 3 if ARCHS[name][3] else 2
+    assert len(calls) == {"resnet50": 40, "resnet18": 17}[name] \
+        == 1 + per_block * n_blocks
+    assert sum(res for res, _ in calls) == n_blocks
+    # a downsample opens layer1..3 of ResNet50-trunc, layer2..4 of ResNet-18
+    assert sum(rb for _, rb in calls) == 3
