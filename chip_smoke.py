@@ -207,6 +207,14 @@ Phases (any failure exits non-zero, and no result line is printed):
      forward, ms per region of both. fused_block, gated_pool and
      gated_pool_partial non-zero after. One ``dryrun {...}`` line carries
      the numbers and the card.
+  16. longnet: Prov-GigaPath's dilated attention (ops/dilated_attention.py,
+     the two kernels of kernels/csrc/dilated_attention.cu, built here at
+     their first call) at 16 heads of 48 and the published schedule,
+     N 2,049 / 11,081 / 32,769: kernel against its plain version (relative L2 <= 5e-3), CUDA-event ms of
+     the kernel, the plain version and SDPA's flash per branch on the
+     gathered tensors (``library_ms``, the gathers not timed), the bound
+     from the shapes; then the bf16 slide encoder at N 2,049 runs the
+     wrapper 12 times. One ``longnet {...}`` line.
   8. profile (only with --profile PATH): where one warm encode_stream's
      time goes, stage by stage (the colour and DCT decode stages through
      the kernels beside their plain chains), and torch.profiler kernel
@@ -4393,6 +4401,62 @@ def set_launches(records, paths) -> None:
                                    for p, r in paths.items()}
 
 
+def phase_longnet(dev) -> dict:
+    """Phase 16: the dilated-attention kernels beside their plain version,
+    the library and their bound, and one slide-encoder forward."""
+    from hipt_abmil_atec23_tpu_torch.models.longnet import PUBLISHED_SCHEDULE
+    from hipt_abmil_atec23_tpu_torch.ops import dilated_attention as da
+    sched, out = PUBLISHED_SCHEDULE, {"shapes": []}
+    gen = torch.Generator(device=dev).manual_seed(22)
+    for n in (2049, 11081, 32769):
+        q, k, v = (torch.randn(n, 16, 48, generator=gen, device=dev)
+                   .bfloat16() for _ in range(3))
+        got = da.dilated_attention(q, k, v, sched).float()
+        want = da.dilated_attention_reference(q, k, v, sched).float()
+        rel = ((got - want).norm() / want.norm()).item()
+        if not rel <= 5e-3:
+            raise AssertionError(f"longnet: kernel at N {n} is {rel:.2e} "
+                                 "off its plain version")
+        gathered = []
+        for w, r in sched:
+            rows, real = da.branch_index(n, w, r, 16, dev)
+            hh = torch.arange(16, device=dev)[None, :, None].expand_as(rows)
+            gathered.append([torch.where(real[..., None], x[rows, hh], 0)
+                             .contiguous() for x in (q, k, v)])
+
+        def library():
+            for gq, gk, gv in gathered:
+                torch.ops.aten._scaled_dot_product_flash_attention(gq, gk, gv)
+
+        flops = sum(4.0 * 48 * da.branch_pairs(n, w, r, 16)
+                    for w, r in sched)
+        nbytes = 8.0 * n * 768 + sum(4.0 * n * 16 // r for _, r in sched)
+        least, by = bound(nbytes, flops, BF16_FLOP_S)
+        out["shapes"].append({
+            "n": n, "rel_err": rel,
+            "ms": gpu_timer(lambda: da.dilated_attention(q, k, v, sched), 20),
+            "plain_ms": gpu_timer(
+                lambda: da.dilated_attention_reference(q, k, v, sched), 2),
+            "library_ms": gpu_timer(library, 10),
+            "bound_ms": least, "bound_by": by, "tflop": flops / 1e12})
+        del q, k, v, gathered
+    with torch.device(dev):
+        model = build_mil_model("gigapath_slide", dtype=torch.bfloat16).eval()
+    bag = torch.randn(2048, 1536, generator=gen, device=dev)
+    coords = torch.randint(0, 190, (2048, 2), generator=gen,
+                           device=dev).float() * 256
+    calls = da.dilated_attention.calls
+    with torch.inference_mode():
+        logits = model(bag, coords).logits
+    torch.cuda.synchronize()
+    out["forward_calls"] = da.dilated_attention.calls - calls
+    if out["forward_calls"] != 12 or not bool(logits.isfinite().all()):
+        raise AssertionError(f"longnet: {out['forward_calls']} wrapper "
+                             "calls for 12 layers, or logits not finite")
+    log("longnet " + json.dumps(out))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", metavar="PATH",
@@ -4431,6 +4495,7 @@ def main() -> int:
     dras = phase_dras(dev, smi, kres["records"], online=rres["online"])
     tune = phase_tune(dev, smi, kres["records"])
     dry = phase_dryrun(dev, smi, regions)
+    phase_longnet(dev)
     if args.profile:
         phase_profile(dev, res["encoder"], pres["encoder"], planes[0],
                       dct_slides[0], args.profile)

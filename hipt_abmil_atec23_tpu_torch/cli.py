@@ -270,7 +270,9 @@ def _add_train(sub):
     p.add_argument("--exp_code", default="exp")
     p.add_argument("--split_dir", default="")
     p.add_argument("--model_type", default="clam_sb",
-                   choices=["clam_sb", "clam_mb", "mil"])
+                   choices=["clam_sb", "clam_mb", "mil", "gigapath_slide"],
+                   help="gigapath_slide is refused: it serves and "
+                        "evaluates only (ROADMAP F.6)")
     p.add_argument("--model_size", default="hipt_smaller")
     p.add_argument("--drop_out", type=float, default=0.0)
     p.add_argument("--no_inst_cluster", action="store_true")
@@ -428,6 +430,11 @@ def _train_full_bags(cfg, manifest, store, device) -> None:
 
 
 def _cmd_train(a):
+    if a.model_type == "gigapath_slide":
+        raise SystemExit(
+            "train: gigapath_slide is not trainable on the port yet: its "
+            "dilated-attention kernel has no backward pass (ROADMAP F.6). "
+            "serve and eval take it with a released or exported .pt")
     from hipt_abmil_atec23_tpu_torch.data.bags import FeatureBagStore
     from hipt_abmil_atec23_tpu_torch.data.manifest import SlideManifest
     from hipt_abmil_atec23_tpu_torch.device import resolve_device
@@ -678,7 +685,9 @@ def _add_eval(sub):
     p.add_argument("--save_dir", required=True)
     p.add_argument("--split_dir", default="")
     p.add_argument("--splits", default="test", choices=["test", "val", "all"])
-    p.add_argument("--model_type", default="clam_sb")
+    p.add_argument("--model_type", default="clam_sb",
+                   help="clam_sb, clam_mb, mil or gigapath_slide (whole "
+                        "bags with the h5 store's coords, fold .pt)")
     p.add_argument("--model_size", default="hipt_smaller")
     p.add_argument("--drop_out", type=float, default=0.0)
     p.add_argument("--k", type=int, default=5)
@@ -1014,7 +1023,10 @@ def _add_serve(sub):
     p.add_argument("--ckpt", required=True,
                    help="MIL checkpoint (reference-layout torch .pt; any "
                         "other name is a flax checkpoint)")
-    p.add_argument("--model_type", default="clam_sb")
+    p.add_argument("--model_type", default="clam_sb",
+                   help="clam_sb, clam_mb, mil or gigapath_slide (scored "
+                        "with the tiles' coords; its width is the "
+                        "encoder's)")
     p.add_argument("--model_size", default="hipt_smaller")
     p.add_argument("--n_classes", type=int, default=2)
     p.add_argument("--encoder", default="HIPT_4K", choices=ENCODERS)

@@ -48,6 +48,27 @@ def evaluate_full_bags_fused(cfg, ds: BagDataset, model,
     return np.stack(probs), float(np.mean(losses))
 
 
+def evaluate_full_bags_coords(cfg, ds: BagDataset, model,
+                              device) -> Tuple[np.ndarray, float]:
+    """Full-bag evaluation for a head whose forward takes coordinates
+    (``gigapath_slide``): each slide's whole bag with its coords (the
+    store's h5, ``FeatureBagStore.load_with_coords``) through serve's
+    ``score_stream``, one slide a forward at its own length, the next
+    slides issued while the card runs the earlier ones. Returns (probs
+    [n, C], mean loss)."""
+    from hipt_abmil_atec23_tpu_torch.engine.serve import (
+        ServeState, score_stream)
+    loss_fn = make_per_sample_loss(cfg.train.bag_loss)
+    state = ServeState(device=device, model=model)
+    slides = ((int(label), *ds.store.load_with_coords(sid))
+              for sid, label in zip(ds.slide_ids, ds.labels))
+    probs, losses = [], []
+    for label, logits in score_stream(state, slides):
+        probs.append(torch.softmax(logits, -1)[0].numpy())
+        losses.append(float(loss_fn(logits, torch.tensor([label]))[0]))
+    return np.stack(probs), float(np.mean(losses))
+
+
 def evaluate_fold(cfg, fold: int, ds: BagDataset, class_counts: np.ndarray,
                   models_dir: str, n_pad: Optional[int] = None, *,
                   device="cuda") -> FoldResult:
@@ -60,14 +81,21 @@ def evaluate_fold(cfg, fold: int, ds: BagDataset, class_counts: np.ndarray,
 
     A gated single-branch CLAM whose bags are not subsampled
     (``max_patches_per_slide`` unset) takes ``evaluate_full_bags_fused``;
-    every other head and setting takes ``evaluate_split``. On an
+    a head that takes coordinates (``gigapath_slide``) always takes
+    ``evaluate_full_bags_coords`` on whole bags; every other head and
+    setting takes ``evaluate_split``. On an
     un-subsampled bag both compute the same function. The JAX package also
     asks for a padded size of at least 4096 (``FUSED_EVAL_MIN_BAG``, a band
     set on a TPU); the CUDA pool has no size band (ops/
     gated_attention_pool.apply_pooled), so neither has this route."""
     from hipt_abmil_atec23_tpu_torch.engine.checkpoint import (
         fold_ckpt, load_mil_state_dict)
+    from hipt_abmil_atec23_tpu_torch.models.abmil import COORD_MODEL_TYPES
     feat_dim = ds._full_bag(ds.slide_ids[0]).shape[1]
+    if cfg.model.model_type in COORD_MODEL_TYPES:
+        probs, loss = _coords_fold(cfg, fold, ds, feat_dim, models_dir,
+                                   device)
+        return _fold_result(fold, ds, cfg, probs, loss)
     if n_pad is None:
         n_pad = ds.pad_size()
     ds._feat_dim = feat_dim
@@ -84,6 +112,31 @@ def evaluate_fold(cfg, fold: int, ds: BagDataset, class_counts: np.ndarray,
         probs, loss = evaluate_full_bags_fused(cfg, ds, model, n_pad)
     else:
         probs, loss = evaluate_split(fns, model, ds, n_pad, rng)
+    return _fold_result(fold, ds, cfg, probs, loss)
+
+
+def _coords_fold(cfg, fold: int, ds: BagDataset, feat_dim: int,
+                 models_dir: str, device) -> Tuple[np.ndarray, float]:
+    """A coords-taking head from fold ``fold``'s ``.pt``, its encoder in
+    bf16 on a card and f32 on the CPU, over ``ds``'s whole bags."""
+    from hipt_abmil_atec23_tpu_torch.device import resolve_device
+    from hipt_abmil_atec23_tpu_torch.engine.checkpoint import (
+        load_mil_state_dict)
+    from hipt_abmil_atec23_tpu_torch.models.abmil import build_mil_model
+    device = resolve_device(device)
+    path = os.path.join(models_dir, f"s_{fold}_checkpoint.pt")
+    dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
+    model = build_mil_model(cfg.model.model_type,
+                            n_classes=cfg.task.n_classes, in_dim=feat_dim,
+                            dtype=dtype)
+    model.load_state_dict(load_mil_state_dict(
+        path, cfg.model.model_type, cfg.task.n_classes))
+    return evaluate_full_bags_coords(cfg, ds, model.to(device).eval(),
+                                     device)
+
+
+def _fold_result(fold: int, ds: BagDataset, cfg, probs: np.ndarray,
+                 loss: float) -> FoldResult:
     return FoldResult(
         fold=fold, val_auc=float("nan"),
         test_auc=M.auc_score(ds.labels, probs, cfg.task.n_classes),

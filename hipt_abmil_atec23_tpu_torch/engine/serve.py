@@ -21,8 +21,9 @@ import dataclasses
 import json
 import os
 import time
+from collections import deque
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Callable, Dict, Iterable, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -32,6 +33,8 @@ from hipt_abmil_atec23_tpu_torch.utils.config import (
 from hipt_abmil_atec23_tpu_torch.utils.logging import span_end, span_start
 
 _DONE_STATUSES = ("done", "failed_seg")
+# slides score_stream issues beyond the one whose answers it reads back
+SCORE_AHEAD = 2
 SLIDE_EXTS = (".tif", ".tiff", ".svs", ".png", ".jpg", ".jpeg")
 
 
@@ -143,14 +146,25 @@ def _ensure_state(cfg: ServeConfig, state: ServeState) -> None:
     from hipt_abmil_atec23_tpu_torch.engine.checkpoint import (
         load_mil_state_dict)
     from hipt_abmil_atec23_tpu_torch.engine.encode import build_encoder
-    from hipt_abmil_atec23_tpu_torch.models.abmil import build_mil_model
+    from hipt_abmil_atec23_tpu_torch.models.abmil import (
+        COORD_MODEL_TYPES, build_mil_model)
     state.device = resolve_device(state.device)
     if state.encoder is None:
         state.encoder = build_encoder(cfg.encoder, device=state.device)
     if state.model is None:
+        coord_head = cfg.model.model_type in COORD_MODEL_TYPES
+        if coord_head and not cfg.ckpt_path.endswith(".pt"):
+            raise ValueError(f"{cfg.model.model_type} loads a torch .pt "
+                             f"checkpoint, got {cfg.ckpt_path!r}")
+        # a coords-taking head is built for the encoder's width, computing
+        # in its dtype
+        extra = dict(in_dim=state.encoder.feat_dim,
+                     dtype=getattr(torch, cfg.encoder.dtype)) \
+            if coord_head else {}
         model = build_mil_model(cfg.model.model_type,
                                 size_arg=cfg.model.model_size,
-                                n_classes=cfg.n_classes, gate=cfg.model.gate)
+                                n_classes=cfg.n_classes, gate=cfg.model.gate,
+                                **extra)
         if model.size[0] != state.encoder.feat_dim:
             raise ValueError(
                 f"MIL head {cfg.model.model_size!r} takes {model.size[0]}-d "
@@ -185,12 +199,85 @@ def _mil_bucketed(state: ServeState, feats: np.ndarray):
     return out
 
 
+def score_with_coords(state: ServeState, feats, coords):
+    """One slide through a head whose forward takes coordinates
+    (``gigapath_slide``), at the bag's own length: no padding, no bucket
+    (a pad row would change the dilated attention's segments and the
+    answer). ``feats`` [N, D] and ``coords`` [N, 2] (level-0 x, y) are
+    numpy arrays or CPU tensors; they go to the card as they are, each one
+    copy, asynchronous where the caller pinned them, and nothing else is
+    copied to the card. The coordinates are checked against the position
+    grid on the host first. Returns the head's ``MILOutput`` (``a_raw``
+    None; ``extras["slide_embedding"]``). While a torch.profiler runs it
+    records the span ``longnet.h2d`` with the bag's rows; the model
+    records ``longnet.embed`` and ``longnet.layers``."""
+    from hipt_abmil_atec23_tpu_torch.models.longnet import tile_positions
+    enc = state.model.slide_encoder
+    coords = torch.as_tensor(coords)
+    tile_positions(coords, enc.tile_size, enc.ngrids)     # raises off grid
+    t = span_start()
+    with torch.inference_mode():
+        bag = torch.as_tensor(feats)
+        bag = bag.to(state.device, non_blocking=bag.is_pinned())
+        coords = coords.to(state.device, non_blocking=coords.is_pinned())
+        t = span_end(t, "longnet.h2d", rows=len(bag))
+        return state.model(bag, coords)
+
+
+def _logits(out) -> torch.Tensor:
+    return out.logits.float()
+
+
+def score_stream(state: ServeState, slides: Iterable[Tuple],
+                 readback: Callable = _logits) -> Iterator[Tuple]:
+    """Score a stream of slides through ``score_with_coords`` with up to
+    ``SCORE_AHEAD`` slides issued beyond the one whose answers are read
+    back, so that the host issues the next slides' launches while the card
+    runs the earlier ones (0 would wait on each slide; 2 is the shallowest
+    depth within 1% of the best rate on an H100, PERF.md section 6).
+    ``slides`` yields (key, feats, coords) and is drawn one slide at a
+    time, only when there is room. Each slide's ``readback(out)`` (by
+    default its f32 logits [1, C]) is copied to host memory as soon as the
+    slide is issued, asynchronously into pinned memory on a card. Yields
+    (key, host tensor) in the order of ``slides``, each once its copy has
+    landed."""
+    cuda = state.device is not None and \
+        torch.device(state.device).type == "cuda"
+    flight, slides = deque(), iter(slides)
+    more = True
+    while True:
+        while more and len(flight) <= SCORE_AHEAD:
+            item = next(slides, None)
+            if item is None:
+                more = False
+                break
+            key, feats, coords = item
+            out = score_with_coords(state, feats, coords)
+            with torch.inference_mode():
+                answer = readback(out)
+                host = torch.empty(answer.shape, dtype=answer.dtype,
+                                   pin_memory=cuda)
+                host.copy_(answer, non_blocking=cuda)
+            event = None
+            if cuda:
+                event = torch.cuda.Event()
+                event.record()
+            flight.append((key, host, event))
+        if not flight:
+            return
+        key, host, event = flight.popleft()
+        if event is not None:
+            event.synchronize()
+        yield key, host
+
+
 def serve_once(cfg: ServeConfig, state: ServeState, *,
                verbose: bool = True) -> List[Dict]:
     """Drain every pending slide through one encode_stream pipeline.
     Returns the per-slide prediction records written this drain."""
     from hipt_abmil_atec23_tpu_torch.engine import encode
     from hipt_abmil_atec23_tpu_torch.explain.heatmaps import save_blockmap
+    from hipt_abmil_atec23_tpu_torch.models.abmil import COORD_MODEL_TYPES
     from hipt_abmil_atec23_tpu_torch.slideio.patching import enumerate_coords
     from hipt_abmil_atec23_tpu_torch.slideio.reader import open_slide
     from hipt_abmil_atec23_tpu_torch.slideio.seg import segment_tissue
@@ -247,26 +334,31 @@ def serve_once(cfg: ServeConfig, state: ServeState, *,
     finished = set()
 
     def _finish(sid, feats):
-        """Score + persist one encoded slide."""
+        """Score + persist one encoded slide. A coords-taking head scores
+        the bag with its coordinates and has no per-region scores, so its
+        record has no top regions and no blockmap is written."""
         t_done = time.time()
         coords = coord_map[sid]
-        out = _mil_bucketed(state, feats)
+        coord_head = cfg.model.model_type in COORD_MODEL_TYPES
+        out = (score_with_coords(state, feats, coords) if coord_head
+               else _mil_bucketed(state, feats))
         y_prob = out.y_prob[0].float().cpu().numpy()
-        scores = out.a_raw[0].float().cpu().numpy()[:len(coords)]
-        order = np.argsort(scores)[::-1][:cfg.top_k]
         rec = {
             "slide_id": sid,
             "status": "done",
             "y_hat": int(out.y_hat[0]),
             "p": [float(v) for v in y_prob],
             "n_regions": int(len(coords)),
-            "top_regions": [
-                [int(coords[i][0]), int(coords[i][1]), float(scores[i])]
-                for i in order],
-            "time": t_done,
         }
-        save_blockmap(os.path.join(results_dir, f"{sid}_blockmap.h5"),
-                      coords, scores)
+        if not coord_head:
+            scores = out.a_raw[0].float().cpu().numpy()[:len(coords)]
+            order = np.argsort(scores)[::-1][:cfg.top_k]
+            rec["top_regions"] = [
+                [int(coords[i][0]), int(coords[i][1]), float(scores[i])]
+                for i in order]
+            save_blockmap(os.path.join(results_dir, f"{sid}_blockmap.h5"),
+                          coords, scores)
+        rec["time"] = t_done
         if store is not None:
             store.save(sid, feats, coords=coords)
         with open(os.path.join(results_dir, f"{sid}.json"), "w") as f:

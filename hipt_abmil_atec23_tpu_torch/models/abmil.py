@@ -391,7 +391,9 @@ def init_reference_weights(model: nn.Module,
     return model
 
 
-MIL_MODEL_TYPES = ("clam_sb", "clam_mb", "mil")
+MIL_MODEL_TYPES = ("clam_sb", "clam_mb", "mil", "gigapath_slide")
+# heads whose forward takes (bag, coords), one whole slide at a time
+COORD_MODEL_TYPES = ("gigapath_slide",)
 
 
 def check_model_type(model_type: str) -> None:
@@ -404,10 +406,21 @@ def check_model_type(model_type: str) -> None:
 def build_mil_model(model_type: str, *, size_arg: str = "small",
                     dropout: float = 0.0, n_classes: int = 2,
                     k_sample: int = 8, gate: bool = True,
-                    subtyping: bool = False) -> nn.Module:
+                    subtyping: bool = False, in_dim: Optional[int] = None,
+                    dtype: torch.dtype = torch.float32) -> nn.Module:
     """Model-type dispatch (reference: main.py:329, utils/core_utils.py:
     156-189). ``mil`` ignores ``size_arg``: the reference's MIL heads have
-    the one size [1024, 512]."""
+    the one size [1024, 512]. ``gigapath_slide`` (models/longnet.py,
+    Prov-GigaPath's slide encoder and linear head) ignores ``size_arg``,
+    ``dropout``, ``k_sample``, ``gate`` and ``subtyping``; it takes the
+    tile embeddings' width ``in_dim`` (1536, the published tile encoder's,
+    by default) and the encoder's compute ``dtype``, at the published
+    ``enc12l768d`` architecture (models/longnet.GigaPathSlide takes
+    others)."""
+    if model_type == "gigapath_slide":
+        from hipt_abmil_atec23_tpu_torch.models.longnet import GigaPathSlide
+        return GigaPathSlide(n_classes=n_classes, in_dim=in_dim or 1536,
+                             dtype=dtype)
     if model_type in ("clam_sb", "clam_mb"):
         cls = CLAM_SB if model_type == "clam_sb" else CLAM_MB
         return cls(gate=gate, size_arg=size_arg, dropout=dropout,

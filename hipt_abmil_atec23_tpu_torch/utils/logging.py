@@ -10,8 +10,10 @@ core_utils.py:126-128, 365-371) and profiles with cProfile (main.py:
 - ``trace()`` wraps a block in ``torch.profiler`` (CPU and, on a card,
   CUDA activity) and writes a Chrome trace and the program's spans;
 - ``span_start()`` / ``span_end()`` record a span at a layer boundary of
-  the slide stream and of scoring (engine/encode.py, engine/serve.py),
-  only while a ``torch.profiler`` runs.
+  the slide stream and of scoring (engine/encode.py, engine/serve.py,
+  models/longnet.py), only while a ``torch.profiler`` runs;
+- ``count_event()`` records a program counter (a tuple of numbers, such
+  as a forward's attention pairs by branch) the same way.
 """
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ import json
 import os
 import threading
 import time
-from typing import Dict, List, NamedTuple
+from typing import Dict, List, NamedTuple, Sequence, Tuple
 
 from torch.autograd import profiler as _profiler
 
@@ -107,6 +109,35 @@ def span_end(t0: int, name: str, slide: int = -1, batch: int = -1,
     return t1 if _profiler._is_profiler_enabled else 0
 
 
+class Count(NamedTuple):
+    """One program counter: ``values`` at ``time_ns`` (``time.time_ns()``,
+    the spans' clock)."""
+    name: str
+    time_ns: int
+    values: Tuple[float, ...]
+
+
+_COUNTS: List[Count] = []
+
+
+def recording() -> bool:
+    """True while a torch.profiler runs, when spans and counters are
+    recorded: a caller computes a counter's values only then."""
+    return _profiler._is_profiler_enabled
+
+
+def count_event(name: str, values: Sequence[float]) -> None:
+    """Record the counter ``name`` while a torch.profiler runs; nothing
+    otherwise."""
+    if _profiler._is_profiler_enabled:
+        _COUNTS.append(Count(name, time.time_ns(), tuple(values)))
+
+
+def recorded_counts() -> List[Count]:
+    """Every counter recorded since the last ``clear_spans()``."""
+    return _COUNTS
+
+
 def recorded_spans() -> List[Span]:
     """Every span recorded since the last ``clear_spans()``, in the order
     they ended."""
@@ -115,6 +146,7 @@ def recorded_spans() -> List[Span]:
 
 def clear_spans() -> None:
     _SPANS.clear()
+    _COUNTS.clear()
 
 
 @contextlib.contextmanager
@@ -122,7 +154,8 @@ def trace(log_dir: str):
     """torch.profiler around a block; writes ``log_dir/trace.json`` (a
     Chrome trace of the host and, where a card is visible, the device
     timeline) and ``log_dir/spans.jsonl`` (the spans the block recorded,
-    on the same clock)."""
+    on the same clock), and ``log_dir/counts.jsonl`` where it recorded
+    program counters."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     activities = [ProfilerActivity.CPU]
@@ -136,3 +169,7 @@ def trace(log_dir: str):
     with open(os.path.join(log_dir, "spans.jsonl"), "w") as f:
         for s in _SPANS:
             f.write(json.dumps(s._asdict()) + "\n")
+    if _COUNTS:
+        with open(os.path.join(log_dir, "counts.jsonl"), "w") as f:
+            for c in _COUNTS:
+                f.write(json.dumps(c._asdict()) + "\n")

@@ -893,3 +893,93 @@ def test_attention_kernels_refuse_what_they_do_not_take(cuda_device):
             fn(q, k, v, 41)
         with pytest.raises(ValueError):
             fn(q, k[:, :20], v[:, :20])
+
+
+# The dilated-attention kernels (ops/dilated_attention.py) at the published
+# widths (16 heads of 48) and schedule, at the cell's smallest, mean and
+# largest token counts, and at a short schedule whose segments, pads and
+# head groups all fall inside small N.
+SHORT_SCHEDULE = [(64, 1), (96, 2), (256, 4), (1024, 16)]
+
+
+def _dilated_qkv(n, dev, seed=0, heads=16, d=48):
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn(n, heads, d, generator=g).to(dev, torch.bfloat16)
+            for _ in range(3)]
+
+
+def _dilated_within(got, want):
+    """Relative L2 gap <= 5e-3 and every element within 2e-2 + 2e-2
+    |plain|: both outputs are rounded to bf16 (one unit is 2^-8 of the
+    value) and p is rounded to bf16 against another running maximum."""
+    got, want = got.float(), want.float()
+    rel = ((got - want).norm() / want.norm()).item()
+    assert rel <= 5e-3, rel
+    assert bool(((got - want).abs() <= 2e-2 + 2e-2 * want.abs()).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2049, 11081, 32769])
+def test_dilated_attention_kernel_matches_plain(n, cuda_device):
+    from hipt_abmil_atec23_tpu_torch.models.longnet import PUBLISHED_SCHEDULE
+    from hipt_abmil_atec23_tpu_torch.ops import dilated_attention as da
+    q, k, v = _dilated_qkv(n, cuda_device)
+    calls, launches = da.dilated_attention.calls, \
+        da.dilated_attention.launches
+    got = da.dilated_attention(q, k, v, PUBLISHED_SCHEDULE)
+    torch.cuda.synchronize()
+    assert da.dilated_attention.calls == calls + 1
+    assert da.dilated_attention.launches == launches + 2
+    assert got.shape == (n, 768) and got.dtype == torch.bfloat16
+    _dilated_within(got, da.dilated_attention_reference(
+        q, k, v, PUBLISHED_SCHEDULE))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 2, 7, 100, 257, 1000, 3001])
+def test_dilated_attention_kernel_at_pads_and_segments(n, cuda_device):
+    """N below, at and past each w, N not a multiple of r, one token."""
+    from hipt_abmil_atec23_tpu_torch.ops import dilated_attention as da
+    q, k, v = _dilated_qkv(n, cuda_device, seed=n)
+    got = da.dilated_attention(q, k, v, SHORT_SCHEDULE)
+    _dilated_within(got, da.dilated_attention_reference(q, k, v,
+                                                        SHORT_SCHEDULE))
+
+
+@pytest.mark.cuda
+def test_dilated_attention_refuses_what_it_does_not_take(cuda_device):
+    from hipt_abmil_atec23_tpu_torch.ops import dilated_attention as da
+    q, k, v = _dilated_qkv(64, cuda_device)
+    with pytest.raises(ValueError):
+        da.dilated_attention(q.float(), k.float(), v.float(), SHORT_SCHEDULE)
+    with pytest.raises(ValueError):
+        da.dilated_attention(*_dilated_qkv(64, cuda_device, d=40),
+                             SHORT_SCHEDULE)
+    with pytest.raises(ValueError):                       # r 3 of 16 heads
+        da.dilated_attention(q, k, v, [(64, 1), (96, 3)])
+    with pytest.raises(ValueError):                       # heads not dense
+        da.dilated_attention(q.transpose(0, 1).contiguous().transpose(0, 1),
+                             k, v, SHORT_SCHEDULE)
+
+
+@pytest.mark.cuda
+def test_gigapath_forward_calls_the_kernel_once_per_layer(cuda_device):
+    """A bf16 forward of the published slide encoder at N 2049 runs the
+    wrapper 12 times (24 device launches) and gives finite logits."""
+    from hipt_abmil_atec23_tpu_torch.models.abmil import build_mil_model
+    from hipt_abmil_atec23_tpu_torch.ops import dilated_attention as da
+    with torch.device(cuda_device):
+        model = build_mil_model("gigapath_slide", n_classes=2,
+                                dtype=torch.bfloat16).eval()
+    g = torch.Generator().manual_seed(1)
+    bag = torch.randn(2048, 1536, generator=g).to(cuda_device)
+    coords = (torch.randint(0, 100, (2048, 2), generator=g) * 256).float() \
+        .to(cuda_device)
+    calls, launches = da.dilated_attention.calls, \
+        da.dilated_attention.launches
+    with torch.inference_mode():
+        out = model(bag, coords)
+    torch.cuda.synchronize()
+    assert da.dilated_attention.calls - calls == 12
+    assert da.dilated_attention.launches - launches == 24
+    assert out.a_raw is None and bool(out.logits.isfinite().all())
